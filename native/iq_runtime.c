@@ -6,12 +6,12 @@
  * drop-on-overflow semantics (sample/buffer/OverflowableReusableBuffer
  * TransferQueue.java:20-44) and the USB tuner sample converters
  * (source/tuner/usb/converter: 8-bit RTL2832, packed/unpacked 12-bit
- * Airspy, 16-bit). The ring feeds the TPU host pipeline from a producer
+ * Airspy, 16-bit). The ring feeds the device pipeline from a producer
  * thread (file replay or SDR driver) without Python-level locking; both
  * sides run with the GIL released via ctypes.
  *
  * Build: make (native/Makefile) -> libiqruntime.so, loaded via ctypes
- * (sdrtrunk_tpu/io/native.py) with a NumPy fallback when unavailable.
+ * (sdrtrunk_jax/io/native.py) with a NumPy fallback when unavailable.
  */
 #include <stdatomic.h>
 #include <stdint.h>

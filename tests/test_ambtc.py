@@ -5,17 +5,17 @@ manager exactly like its TSBK twin
 PDUMessageFactory.createAMBTC:208)."""
 import numpy as np
 
-from sdrtrunk_tpu.protocol.bits import from_int
-from sdrtrunk_tpu.protocol.p25p1.ambtc import parse_ambtc
-from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-from sdrtrunk_tpu.protocol.p25p1.messages import P25P1Message
-from sdrtrunk_tpu.protocol.p25p1.pdu import (PDUSequence,
+from sdrtrunk_jax.protocol.bits import from_int
+from sdrtrunk_jax.protocol.p25p1.ambtc import parse_ambtc
+from sdrtrunk_jax.protocol.p25p1.duid import DUID
+from sdrtrunk_jax.protocol.p25p1.messages import P25P1Message
+from sdrtrunk_jax.protocol.p25p1.pdu import (PDUSequence,
                                              pdu_decode_block,
                                              pdu_decode_header,
                                              pdu_encode_block,
                                              pdu_encode_header)
-from sdrtrunk_tpu.runtime.p25_state import P25P1DecoderState
-from sdrtrunk_tpu.runtime.traffic import (FrequencyBand,
+from sdrtrunk_jax.runtime.p25_state import P25P1DecoderState
+from sdrtrunk_jax.runtime.traffic import (FrequencyBand,
                                           TrafficChannelManager)
 
 
@@ -89,7 +89,7 @@ def test_parse_umbtc_dial_request():
     """UMBTC (format 21) telephone interconnect explicit dial request:
     opcode in block 0 bits [2:8), digits as 4-bit nibbles
     (PDUMessageFactory.createUMBTC:294-311)."""
-    from sdrtrunk_tpu.protocol.p25p1.ambtc import parse_umbtc
+    from sdrtrunk_jax.protocol.p25p1.ambtc import parse_umbtc
 
     hdr_air = pdu_encode_header(format=21, sap=61, llid=0x42,
                                 blocks_to_follow=1, outbound=False)

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.audio import (AudioSegment, BitsReader, BitsRecorder,
+from sdrtrunk_jax.audio import (AudioSegment, BitsReader, BitsRecorder,
                                 DuplicateCallDetector, read_audio_wave,
                                 write_audio_wave)
-from sdrtrunk_tpu.audio.streaming import (AudioStreamingManager,
+from sdrtrunk_jax.audio.streaming import (AudioStreamingManager,
                                           IcecastSourceClient, StreamConfig)
-from sdrtrunk_tpu.runtime.identifiers import Identifier
+from sdrtrunk_jax.runtime.identifiers import Identifier
 
 
 def _segment(start=0.0, tg=100):
@@ -106,11 +106,11 @@ def test_wave_list_info_metadata():
     """Call WAVs carry an in-container LIST-INFO chunk (the reference's
     AudioMetadataUtils tags) that survives a standard wave reader."""
     import numpy as np
-    from sdrtrunk_tpu.audio.recorder import (read_audio_wave,
+    from sdrtrunk_jax.audio.recorder import (read_audio_wave,
                                              read_wave_list_info,
                                              write_audio_wave)
-    from sdrtrunk_tpu.audio.segments import AudioSegment
-    from sdrtrunk_tpu.runtime.identifiers import (Identifier,
+    from sdrtrunk_jax.audio.segments import AudioSegment
+    from sdrtrunk_jax.runtime.identifiers import (Identifier,
                                                   IdentifierRole)
     import tempfile, os
     seg = AudioSegment(start_time=12.5, sample_rate=8000.0, timeslot=1)
@@ -137,9 +137,9 @@ def test_mp2_call_recording():
     """RecordConfig audio_format='mp2': calls record as conformant
     Layer II files the independent ISO decoder accepts."""
     import numpy as np
-    from sdrtrunk_tpu.audio.mpeg import L2_FRAME_BYTES
-    from sdrtrunk_tpu.audio.recorder import write_audio_mpeg
-    from sdrtrunk_tpu.audio.segments import AudioSegment
+    from sdrtrunk_jax.audio.mpeg import L2_FRAME_BYTES
+    from sdrtrunk_jax.audio.recorder import write_audio_mpeg
+    from sdrtrunk_jax.audio.segments import AudioSegment
     import tempfile, os, json
     seg = AudioSegment(start_time=1.0, sample_rate=8000.0)
     seg.add_audio(0.3 * np.sin(2 * np.pi * 800 *

@@ -2,15 +2,15 @@
 MDC-1200, LJ-1200, Tait 1200, and the closed audio loop via AFSK1200."""
 import numpy as np
 
-from sdrtrunk_tpu.decoders.auxdec import AuxDecoder
-from sdrtrunk_tpu.protocol import bits as B
-from sdrtrunk_tpu.protocol.auxdec import fleetsync2 as fs2
-from sdrtrunk_tpu.protocol.auxdec import lj1200 as lj
-from sdrtrunk_tpu.protocol.auxdec import mdc1200 as mdc
-from sdrtrunk_tpu.protocol.auxdec import tait1200 as tait
-from sdrtrunk_tpu.protocol.edac.syndrome import SyndromeCode, xpow_mod
-from sdrtrunk_tpu.protocol.framer import MessageFramer
-from sdrtrunk_tpu.signal.generators import afsk1200_modulate
+from sdrtrunk_jax.decoders.auxdec import AuxDecoder
+from sdrtrunk_jax.protocol import bits as B
+from sdrtrunk_jax.protocol.auxdec import fleetsync2 as fs2
+from sdrtrunk_jax.protocol.auxdec import lj1200 as lj
+from sdrtrunk_jax.protocol.auxdec import mdc1200 as mdc
+from sdrtrunk_jax.protocol.auxdec import tait1200 as tait
+from sdrtrunk_jax.protocol.edac.syndrome import SyndromeCode, xpow_mod
+from sdrtrunk_jax.protocol.framer import MessageFramer
+from sdrtrunk_jax.signal.generators import afsk1200_modulate
 
 
 # ---------------------------------------------------------------- framer
@@ -298,7 +298,7 @@ def test_aux_wired_into_nbfm_channel_processor():
     """AuxDecodeConfig wiring (DecoderFactory.java:398-425 aux module
     list): an NBFM channel with aux=['fleetsync2'] decodes Fleetsync
     bursts riding its demodulated audio into PAGE decode events."""
-    from sdrtrunk_tpu.runtime.processors import NBFMChannelProcessor
+    from sdrtrunk_jax.runtime.processors import NBFMChannelProcessor
 
     msg = _fleetsync_message(
         fs2.encode_block(_fleetsync_block1(fleet=12, ident1=456)))

@@ -3,14 +3,14 @@ mixed multi-slot streams, chunked with ragged per-slot counts."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol.p25p1.bankframer import P25P1BankFramer
-from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-from sdrtrunk_tpu.protocol.p25p1.framer import (P25P1FrameAssembler,
+from sdrtrunk_jax.protocol.p25p1.bankframer import P25P1BankFramer
+from sdrtrunk_jax.protocol.p25p1.duid import DUID
+from sdrtrunk_jax.protocol.p25p1.framer import (P25P1FrameAssembler,
                                                 P25P1Framer)
-from sdrtrunk_tpu.protocol.p25p1.ldu import ldu1_encode, ldu2_encode
-from sdrtrunk_tpu.protocol.p25p1.lc import lc_build_group_voice
-from sdrtrunk_tpu.protocol.p25p1.messages import decode_frame
-from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
+from sdrtrunk_jax.protocol.p25p1.ldu import ldu1_encode, ldu2_encode
+from sdrtrunk_jax.protocol.p25p1.lc import lc_build_group_voice
+from sdrtrunk_jax.protocol.p25p1.messages import decode_frame
+from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
 
 
 def _voice_stream(seed: int, n_super: int = 4) -> np.ndarray:
@@ -114,7 +114,7 @@ def test_bank_device_hits_path():
     c = 2
     bank_host = P25P1BankFramer(c, retain=2048)
     bank_dev = P25P1BankFramer(c, retain=2048)
-    from sdrtrunk_tpu.protocol.p25p1.bankframer import (DIBIT_DIFF,
+    from sdrtrunk_jax.protocol.p25p1.bankframer import (DIBIT_DIFF,
                                                         SYNC_DIBIT_PATTERNS)
     host_msgs, dev_msgs = [], []
     for off in range(0, len(stream) - cap, cap):

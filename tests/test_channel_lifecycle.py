@@ -6,9 +6,9 @@ channels, and tear down channels that fall outside the new capture.
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
-from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
-from sdrtrunk_tpu.sources.tuner import SourceEvent, SourceEventType
+from sdrtrunk_jax.runtime.identifiers import IdentifierCollection
+from sdrtrunk_jax.runtime.orchestrator import Orchestrator
+from sdrtrunk_jax.sources.tuner import SourceEvent, SourceEventType
 
 FS = 64 * 12500.0
 CENTER = 460_000_000.0
@@ -95,9 +95,9 @@ def test_error_state_stops_all_channels():
     to AudioSegments and the run loop exits (the reference's automatic
     channel stop, ChannelProcessingManager.java:359-389)."""
     import numpy as np
-    from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
-    from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
-    from sdrtrunk_tpu.sources.tuner import SourceEvent, SourceEventType
+    from sdrtrunk_jax.runtime.identifiers import IdentifierCollection
+    from sdrtrunk_jax.runtime.orchestrator import Orchestrator
+    from sdrtrunk_jax.sources.tuner import SourceEvent, SourceEventType
 
     fs = 32 * 12500.0
     rng = np.random.default_rng(0)

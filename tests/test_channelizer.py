@@ -6,11 +6,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.dsp import design
-from sdrtrunk_tpu.dsp.channelizer import (Channelizer, channel_count_for_rate,
+from sdrtrunk_jax.dsp import design
+from sdrtrunk_jax.dsp.channelizer import (Channelizer, channel_count_for_rate,
                                           channelize)
-from sdrtrunk_tpu.dsp.extract import extract_channels, plan_channels
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.dsp.extract import extract_channels, plan_channels
+from sdrtrunk_jax.signal import generators
 
 
 def oracle_channelize(x, h, M):
@@ -115,7 +115,7 @@ def test_perfect_reconstruction_two_bins():
 
 def test_channelized_nbfm_decode():
     """Config-2 miniature: multi-channel NBFM through the channelizer."""
-    from sdrtrunk_tpu.decoders.nbfm import NBFMConfig, NBFMDecoder
+    from sdrtrunk_jax.decoders.nbfm import NBFMConfig, NBFMDecoder
 
     M = 16
     fs = M * 12500.0  # 200 kHz

@@ -5,11 +5,11 @@ import json
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu import cli
-from sdrtrunk_tpu.config import (AliasEntry, ChannelConfig, DecodeConfig,
+from sdrtrunk_jax import cli
+from sdrtrunk_jax.config import (AliasEntry, ChannelConfig, DecodeConfig,
                                  Playlist, SourceConfig)
-from sdrtrunk_tpu.io.wave import write_complex_wave
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.io.wave import write_complex_wave
+from sdrtrunk_jax.signal import generators
 
 
 def test_playlist_roundtrip(tmp_path):
@@ -28,7 +28,7 @@ def test_playlist_roundtrip(tmp_path):
     assert back.channels[0].name == "Dispatch"
     assert back.channels[0].decode.nac == 0x293
     al = back.alias_list()
-    from sdrtrunk_tpu.runtime.identifiers import Identifier
+    from sdrtrunk_jax.runtime.identifiers import Identifier
     assert al.lookup(Identifier.talkgroup(150, protocol="APCO25")
                      ).name == "Fire"
     # corrupted file falls back to backup
@@ -43,8 +43,8 @@ def test_decode_config_validation():
 
 
 def _write_p25_capture(tmp_path, fs=25000.0):
-    from sdrtrunk_tpu.protocol.p25p1 import DUID, P25P1FrameAssembler
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
+    from sdrtrunk_jax.protocol.p25p1 import DUID, P25P1FrameAssembler
+    from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
     rng = np.random.default_rng(0)
     asm = P25P1FrameAssembler(nac=0x2F7)
     parts = [rng.integers(0, 4, 50).astype(np.uint8)]
@@ -92,7 +92,7 @@ def test_cli_info_and_channelize(tmp_path, capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "channel_37500.wav" in out
-    from sdrtrunk_tpu.io.wave import read_complex_wave
+    from sdrtrunk_jax.io.wave import read_complex_wave
     chan, rate = read_complex_wave(tmp_path / "channel_37500.wav")
     # extracted channel should hold a strong near-DC tone
     spec = np.abs(np.fft.fft(np.asarray(chan)[256:2304]))
@@ -128,9 +128,9 @@ def test_cli_replay(tmp_path, capsys):
 def test_cli_replay_batched_digital(tmp_path, capsys):
     """Two P25P1 channels in one capture decode through the vmapped
     batched symbol-recovery path (one jit for the protocol group)."""
-    from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-    from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
+    from sdrtrunk_jax.protocol.p25p1.duid import DUID
+    from sdrtrunk_jax.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
 
     fs = 400_000.0
     center = 851_000_000.0
@@ -174,8 +174,8 @@ def test_playlist_editor_cli(tmp_path, capsys):
     """Headless playlist editing: new -> add -> set -> disable ->
     remove round-trips through the versioned JSON with backups."""
     import json
-    from sdrtrunk_tpu.cli import main
-    from sdrtrunk_tpu.config import Playlist
+    from sdrtrunk_jax.cli import main
+    from sdrtrunk_jax.config import Playlist
 
     p = str(tmp_path / "p.json")
     assert main(["playlist", "new", "--playlist", p]) == 0

@@ -3,8 +3,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.decoders import AMConfig, AMDecoder, NBFMConfig, NBFMDecoder
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.decoders import AMConfig, AMDecoder, NBFMConfig, NBFMDecoder
+from sdrtrunk_jax.signal import generators
 
 
 def _nbfm_iq(fs=25000.0, fa=700.0, dur=0.4, dev=3000.0):

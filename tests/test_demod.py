@@ -4,8 +4,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.dsp import agc, demod, oscillator
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.dsp import agc, demod, oscillator
+from sdrtrunk_jax.signal import generators
 
 
 def test_fm_demodulate_recovers_tone():
@@ -111,7 +111,7 @@ def test_c4fm_modulator_phase_steps():
 
 
 def test_wave_roundtrip(tmp_path):
-    from sdrtrunk_tpu.io import wave
+    from sdrtrunk_jax.io import wave
     iq = generators.tone(1000.0, 25000.0, 2048, amplitude=0.7)
     path = tmp_path / "test_iq.wav"
     wave.write_complex_wave(path, iq, 25000)

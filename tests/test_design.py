@@ -3,7 +3,7 @@ import numpy as np
 import pytest
 from scipy import signal as sps
 
-from sdrtrunk_tpu.dsp import design, windows
+from sdrtrunk_jax.dsp import design, windows
 
 
 def test_kaiser_window_matches_scipy():

@@ -5,17 +5,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.protocol.dmr.burst import CACH, EMB, SlotType
-from sdrtrunk_tpu.protocol.dmr.csbk import csbk_decode, csbk_encode
-from sdrtrunk_tpu.protocol.dmr.framer import (VOICE_FRAME_ORDER, DataType,
+from sdrtrunk_jax.protocol.dmr.burst import CACH, EMB, SlotType
+from sdrtrunk_jax.protocol.dmr.csbk import csbk_decode, csbk_encode
+from sdrtrunk_jax.protocol.dmr.framer import (VOICE_FRAME_ORDER, DataType,
                                               DMRBurstAssembler, DMRFramer)
-from sdrtrunk_tpu.protocol.dmr.lc import (MASK_TERMINATOR, MASK_VOICE_HEADER,
+from sdrtrunk_jax.protocol.dmr.lc import (MASK_TERMINATOR, MASK_VOICE_HEADER,
                                           embedded_lc_decode,
                                           embedded_lc_encode,
                                           full_lc_decode, full_lc_encode,
                                           lc_build_group_voice)
-from sdrtrunk_tpu.protocol.dmr.sync import DMRSyncPattern
-from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_encode
+from sdrtrunk_jax.protocol.dmr.sync import DMRSyncPattern
+from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_encode
 
 
 def test_cach_roundtrip():
@@ -92,7 +92,7 @@ def test_framer_data_bursts():
     rng = np.random.default_rng(1)
     csbk_wire = csbk_encode(0x19, rng.integers(0, 2, 64))
     lc = lc_build_group_voice(group=9, source=77)
-    from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_encode
+    from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_encode
     vh_wire = bptc_196_96_encode(full_lc_encode(lc, MASK_VOICE_HEADER))
     bursts = [
         asm.data_burst(DMRSyncPattern.BASE_STATION_DATA, DataType.CSBK,
@@ -122,7 +122,7 @@ def test_framer_voice_superframe():
     ambe = rng.integers(0, 2, (3, 72)).astype(np.uint8)
     lc = lc_build_group_voice(group=0x222, source=0x333)
     frags = embedded_lc_encode(lc)
-    from sdrtrunk_tpu.protocol.dmr.framer import VOICE_FRAME_ORDER
+    from sdrtrunk_jax.protocol.dmr.framer import VOICE_FRAME_ORDER
     bursts = [asm.voice_burst(DMRSyncPattern.BASE_STATION_VOICE, ambe)]
     lcss = [1, 3, 3, 2]  # first, cont, cont, last
     for i, vf in enumerate(VOICE_FRAME_ORDER[:4]):
@@ -148,8 +148,8 @@ def test_framer_voice_superframe():
 def test_dmr_4fsk_end_to_end():
     """CSBK -> burst -> 4FSK modulate -> DMR demod -> framer -> parse."""
     import jax
-    from sdrtrunk_tpu.decoders.dmr import DMRConfig, DMRDecoder
-    from sdrtrunk_tpu.signal import generators
+    from sdrtrunk_jax.decoders.dmr import DMRConfig, DMRDecoder
+    from sdrtrunk_jax.signal import generators
 
     asm = DMRBurstAssembler(color_code=2)
     rng = np.random.default_rng(3)

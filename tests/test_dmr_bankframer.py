@@ -4,22 +4,22 @@ sibling of tests/test_bankframer.py)."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol.dmr.bankframer import (DMR_SYNC_DIBIT_PATTERNS,
+from sdrtrunk_jax.protocol.dmr.bankframer import (DMR_SYNC_DIBIT_PATTERNS,
                                                   DMRBankFramer, _DIFF)
-from sdrtrunk_tpu.protocol.dmr.framer import DMRFramer
+from sdrtrunk_jax.protocol.dmr.framer import DMRFramer
 
 
 def _voice_stream(seed: int, n_calls: int = 3) -> np.ndarray:
-    from sdrtrunk_tpu.protocol.dmr.framer import (DataType,
+    from sdrtrunk_jax.protocol.dmr.framer import (DataType,
                                                   DMRBurstAssembler,
                                                   VOICE_FRAME_ORDER)
-    from sdrtrunk_tpu.protocol.dmr.lc import (MASK_TERMINATOR,
+    from sdrtrunk_jax.protocol.dmr.lc import (MASK_TERMINATOR,
                                               MASK_VOICE_HEADER,
                                               embedded_lc_encode,
                                               full_lc_encode,
                                               lc_build_group_voice)
-    from sdrtrunk_tpu.protocol.dmr.sync import DMRSyncPattern
-    from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_encode
+    from sdrtrunk_jax.protocol.dmr.sync import DMRSyncPattern
+    from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_encode
 
     rng = np.random.default_rng(seed)
     asm = DMRBurstAssembler(color_code=1)

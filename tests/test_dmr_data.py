@@ -8,18 +8,18 @@ UDP / LRRP / ARS content.
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol.bits import from_int, pack_bits
-from sdrtrunk_tpu.protocol.dmr.data import (DataPacketFormat,
+from sdrtrunk_jax.protocol.bits import from_int, pack_bits
+from sdrtrunk_jax.protocol.dmr.data import (DataPacketFormat,
                                             ServiceAccessPoint,
                                             parse_data_header)
-from sdrtrunk_tpu.protocol.dmr.framer import (DataType, DMRBurstAssembler,
+from sdrtrunk_jax.protocol.dmr.framer import (DataType, DMRBurstAssembler,
                                               DMRFramer)
-from sdrtrunk_tpu.protocol.dmr.packet import (
+from sdrtrunk_jax.protocol.dmr.packet import (
     DataBlock, PacketSequenceAssembler, decode_block, decode_rate34_block,
     encode_confirmed_block_1_2, encode_data_header, encode_rate34_block,
     encode_unconfirmed_block_1_2)
-from sdrtrunk_tpu.protocol.dmr.sync import DMRSyncPattern
-from sdrtrunk_tpu.protocol.ip import (parse_ars, parse_ipv4, parse_lrrp,
+from sdrtrunk_jax.protocol.dmr.sync import DMRSyncPattern
+from sdrtrunk_jax.protocol.ip import (parse_ars, parse_ipv4, parse_lrrp,
                                       ipv4_checksum)
 
 
@@ -90,7 +90,7 @@ class TestDataHeader:
         b80 = _header80(DataPacketFormat.UNCONFIRMED_DATA_PACKET,
                         ServiceAccessPoint.IP_PACKET_DATA, 0x123456,
                         0x654321, pad=17, blocks=3, fsn=5)
-        from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_decode
+        from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_decode
         info, nerr = bptc_196_96_decode(encode_data_header(b80))
         assert nerr == 0
         hdr = parse_data_header(info)
@@ -114,7 +114,7 @@ class TestDataHeader:
 
     def test_corrupted_header_crc_fails(self):
         b80 = _header80(DataPacketFormat.UNCONFIRMED_DATA_PACKET, 4, 1, 2)
-        from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_decode
+        from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_decode
         info, _ = bptc_196_96_decode(encode_data_header(b80))
         info = info.copy()
         info[20] ^= 1
@@ -148,7 +148,7 @@ class TestSequenceAssembly:
         datagram = _udp_ipv4(_lrrp_response(), 4001, 4001)
         header196, block196s = self._ip_sequence_bits(datagram, confirmed)
         asm = PacketSequenceAssembler()
-        from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_decode
+        from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_decode
         info, _ = bptc_196_96_decode(header196)
         asm.on_header(1, parse_data_header(info))
         for b in block196s:
@@ -198,7 +198,7 @@ class TestSequenceAssembly:
     def test_confirmed_crc9_detects_corruption(self):
         bits = np.unpackbits(np.frombuffer(b"0123456789", np.uint8))
         blk196 = encode_confirmed_block_1_2(bits, 3)
-        from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_decode
+        from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_decode
         info, _ = bptc_196_96_decode(blk196)
         block = DataBlock(info, "1/2")
         assert block.serial == 3 and block.crc_ok

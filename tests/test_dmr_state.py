@@ -4,19 +4,19 @@ the burst assembler + framer (DMRDecoderState.java role).
 """
 import numpy as np
 
-from sdrtrunk_tpu.audio.mbe import FakeMBECodec
-from sdrtrunk_tpu.protocol.dmr.framer import (DataType, DMRBurstAssembler,
+from sdrtrunk_jax.audio.mbe import FakeMBECodec
+from sdrtrunk_jax.protocol.dmr.framer import (DataType, DMRBurstAssembler,
                                               DMRFramer, VOICE_FRAME_ORDER)
-from sdrtrunk_tpu.protocol.dmr.lc import (MASK_TERMINATOR,
+from sdrtrunk_jax.protocol.dmr.lc import (MASK_TERMINATOR,
                                           MASK_VOICE_HEADER,
                                           embedded_lc_encode,
                                           full_lc_encode,
                                           lc_build_group_voice)
-from sdrtrunk_tpu.protocol.dmr.sync import DMRSyncPattern
-from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_encode
-from sdrtrunk_tpu.runtime.dmr_state import DMRDecoderState
-from sdrtrunk_tpu.runtime.events import DecodeEventType
-from sdrtrunk_tpu.runtime.identifiers import IdentifierForm
+from sdrtrunk_jax.protocol.dmr.sync import DMRSyncPattern
+from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_encode
+from sdrtrunk_jax.runtime.dmr_state import DMRDecoderState
+from sdrtrunk_jax.runtime.events import DecodeEventType
+from sdrtrunk_jax.runtime.identifiers import IdentifierForm
 
 
 def _run(bursts, state=None):
@@ -85,12 +85,12 @@ def test_embedded_lc_learns_identifiers_midcall():
 def test_data_packet_event_gps():
     """Data header + rate-1/2 blocks carrying IPV4/UDP/LRRP with a
     position -> GPS decode event."""
-    from sdrtrunk_tpu.protocol.dmr.data import (DataPacketFormat,
+    from sdrtrunk_jax.protocol.dmr.data import (DataPacketFormat,
                                                 ServiceAccessPoint)
-    from sdrtrunk_tpu.protocol.dmr.packet import (
+    from sdrtrunk_jax.protocol.dmr.packet import (
         encode_data_header, encode_unconfirmed_block_1_2)
-    from sdrtrunk_tpu.protocol.ip import ipv4_checksum
-    from sdrtrunk_tpu.protocol.bits import from_int
+    from sdrtrunk_jax.protocol.ip import ipv4_checksum
+    from sdrtrunk_jax.protocol.bits import from_int
 
     lat = int(38.0 / 180.0 * 4294967295) & 0x7FFFFFFF
     lon = int(282.5 / 360.0 * 4294967295)      # -77.5
@@ -135,8 +135,8 @@ def test_data_packet_event_gps():
 
 
 def test_csbk_control_state():
-    from sdrtrunk_tpu.protocol.dmr.csbk import csbk_encode
-    from sdrtrunk_tpu.runtime.state import ChannelState
+    from sdrtrunk_jax.protocol.dmr.csbk import csbk_encode
+    from sdrtrunk_jax.runtime.state import ChannelState
 
     asm = DMRBurstAssembler(color_code=1)
     aloha = csbk_encode(0x19, np.zeros(64, np.uint8))

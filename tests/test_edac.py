@@ -7,23 +7,23 @@ tables; everything else is encode->corrupt->decode self-consistency.
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol import bits as B
-from sdrtrunk_tpu.protocol.edac.bch import BCH_63_16_11
-from sdrtrunk_tpu.protocol.edac.bptc import (bptc_196_96_decode,
+from sdrtrunk_jax.protocol import bits as B
+from sdrtrunk_jax.protocol.edac.bch import BCH_63_16_11
+from sdrtrunk_jax.protocol.edac.bptc import (bptc_196_96_decode,
                                              bptc_196_96_encode)
-from sdrtrunk_tpu.protocol.edac.crc import (check_crc16_ccitt, crc9_p25,
+from sdrtrunk_jax.protocol.edac.crc import (check_crc16_ccitt, crc9_p25,
                                             crc16_ccitt, crc_bits)
-from sdrtrunk_tpu.protocol.edac.galois import GF64_P25
-from sdrtrunk_tpu.protocol.edac.golay import (golay18_decode, golay18_encode,
+from sdrtrunk_jax.protocol.edac.galois import GF64_P25
+from sdrtrunk_jax.protocol.edac.golay import (golay18_decode, golay18_encode,
                                               golay23_decode, golay23_encode,
                                               golay24_decode, golay24_encode)
-from sdrtrunk_tpu.protocol.edac.hamming import (HAMMING_10_6_3,
+from sdrtrunk_jax.protocol.edac.hamming import (HAMMING_10_6_3,
                                                 HAMMING_13_9_3,
                                                 HAMMING_15_11_3,
                                                 HAMMING_16_11_4,
                                                 HAMMING_17_12_5)
-from sdrtrunk_tpu.protocol.edac.rs import ReedSolomon
-from sdrtrunk_tpu.protocol.edac.trellis import (TRELLIS_1_2_P25,
+from sdrtrunk_jax.protocol.edac.rs import ReedSolomon
+from sdrtrunk_jax.protocol.edac.trellis import (TRELLIS_1_2_P25,
                                                 TRELLIS_3_4_DMR,
                                                 P25_DEINTERLEAVE,
                                                 deinterleave_p25,

@@ -4,11 +4,11 @@ import struct
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.sources.fcd import (FCDCommand, FCDProPlusController,
+from sdrtrunk_jax.sources.fcd import (FCDCommand, FCDProPlusController,
                                       RecordingHid)
-from sdrtrunk_tpu.sources.soundcard import (MixerChannelMode, MixerManager,
+from sdrtrunk_jax.sources.soundcard import (MixerChannelMode, MixerManager,
                                             MixerSpec, SoundCardSource)
-from sdrtrunk_tpu.sources.usb import UsbError
+from sdrtrunk_jax.sources.usb import UsbError
 
 
 class TestFCD:

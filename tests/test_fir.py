@@ -5,7 +5,7 @@ from scipy import signal as sps
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.dsp import design, fir, iir
+from sdrtrunk_jax.dsp import design, fir, iir
 
 
 def _rand_complex(n, seed=0):

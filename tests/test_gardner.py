@@ -9,14 +9,14 @@ detector demonstrably loses frames.
 import numpy as np
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.decoders.c4fm import C4FMConfig, C4FMDecoder
-from sdrtrunk_tpu.decoders.lsm import LSMConfig, LSMDecoder
-from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-from sdrtrunk_tpu.protocol.p25p1.framer import (P25P1FrameAssembler,
+from sdrtrunk_jax.decoders.c4fm import C4FMConfig, C4FMDecoder
+from sdrtrunk_jax.decoders.lsm import LSMConfig, LSMDecoder
+from sdrtrunk_jax.protocol.p25p1.duid import DUID
+from sdrtrunk_jax.protocol.p25p1.framer import (P25P1FrameAssembler,
                                                 P25P1Framer)
-from sdrtrunk_tpu.protocol.p25p1.messages import decode_frame
-from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.protocol.p25p1.messages import decode_frame
+from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
+from sdrtrunk_jax.signal import generators
 
 FS = 25000.0
 
@@ -86,10 +86,10 @@ def test_p25p2_gardner_end_to_end_with_offset_and_skew():
     lock on constant-envelope FSK (that is what the decision-directed
     core is for). Skew stays within what P25P2's 0.1 timing gain
     (P25P2DecoderHDQPSK.java:62) can converge inside one superframe."""
-    from sdrtrunk_tpu.decoders.p25p2 import P25P2Config, P25P2Decoder
-    from sdrtrunk_tpu.protocol.p25p2 import (P25P2FragmentAssembler,
+    from sdrtrunk_jax.decoders.p25p2 import P25P2Config, P25P2Decoder
+    from sdrtrunk_jax.protocol.p25p2 import (P25P2FragmentAssembler,
                                              P25P2Framer)
-    from sdrtrunk_tpu.protocol.p25p2.timeslot import (facch_encode,
+    from sdrtrunk_jax.protocol.p25p2.timeslot import (facch_encode,
                                                       voice4_encode)
 
     wacn, system, nac = 0xA4BC3, 0x123, 0x29A

@@ -7,10 +7,10 @@ reference's BinaryRecorder byte format. Every run must
     oracle is plain float64 NumPy, deterministic across platforms),
   * decode each golden .bits through the framers to the checked-in
     expected event lists,
-  * and agree with the TPU (jitted float32) decode path at the dibit
+  * and agree with the device (jitted float32) decode path at the dibit
     and event level.
 
-Regenerate with: python -m sdrtrunk_tpu.parity --write-golden tests/golden
+Regenerate with: python -m sdrtrunk_jax.parity --write-golden tests/golden
 """
 import json
 import os
@@ -20,15 +20,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.audio.recorder import BitsReader
-from sdrtrunk_tpu.parity import (_dmr_events, _dmr_tx, host_c4fm_demod,
+from sdrtrunk_jax.audio.recorder import BitsReader
+from sdrtrunk_jax.parity import (_dmr_events, _dmr_tx, host_c4fm_demod,
                                  host_gardner_demod)
-from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-from sdrtrunk_tpu.protocol.p25p1.framer import (P25P1FrameAssembler,
+from sdrtrunk_jax.protocol.p25p1.duid import DUID
+from sdrtrunk_jax.protocol.p25p1.framer import (P25P1FrameAssembler,
                                                 P25P1Framer)
-from sdrtrunk_tpu.protocol.p25p1.messages import decode_frame
-from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.protocol.p25p1.messages import decode_frame
+from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
+from sdrtrunk_jax.signal import generators
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -65,7 +65,7 @@ def _p25_events(dibits, with_opcode=True):
 
 
 def test_c4fm_golden_byte_exact(manifest):
-    from sdrtrunk_tpu.decoders.c4fm import C4FMConfig, C4FMDecoder
+    from sdrtrunk_jax.decoders.c4fm import C4FMConfig, C4FMDecoder
     meta = manifest["c4fm"]
     fs = meta["sample_rate"]
     iq = generators.c4fm_modulate(_p25_tx(meta["seed"]),
@@ -76,16 +76,16 @@ def test_c4fm_golden_byte_exact(manifest):
     golden = BitsReader.read(os.path.join(GOLDEN, "c4fm.bits"))
     assert np.array_equal(golden[:len(dibits)], dibits)
     assert _p25_events(dibits) == meta["events"]
-    # TPU path agrees with the golden capture
+    # device path agrees with the golden capture
     out, _ = dec(jnp.asarray(iq), dec.init_state())
-    tpu = np.asarray(out["dibits"])[np.asarray(out["valid"])]
-    n = min(len(tpu), len(dibits))
-    assert float(np.mean(tpu[100:n] == dibits[100:n])) > 0.999
-    assert _p25_events(tpu) == meta["events"]
+    dev = np.asarray(out["dibits"])[np.asarray(out["valid"])]
+    n = min(len(dev), len(dibits))
+    assert float(np.mean(dev[100:n] == dibits[100:n])) > 0.999
+    assert _p25_events(dev) == meta["events"]
 
 
 def test_dmr_golden_byte_exact(manifest):
-    from sdrtrunk_tpu.decoders.dmr import DMRConfig, DMRDecoder
+    from sdrtrunk_jax.decoders.dmr import DMRConfig, DMRDecoder
     meta = manifest["dmr"]
     fs = meta["sample_rate"]
     iq = generators.c4fm_modulate(_dmr_tx(meta["seed"]),
@@ -97,12 +97,12 @@ def test_dmr_golden_byte_exact(manifest):
     assert np.array_equal(golden[:len(dibits)], dibits)
     assert [[k, ts] for k, ts in _dmr_events(dibits)] == meta["events"]
     out, _ = dec(jnp.asarray(iq), dec.init_state())
-    tpu = np.asarray(out["dibits"])[np.asarray(out["valid"])]
-    assert [[k, ts] for k, ts in _dmr_events(tpu)] == meta["events"]
+    dev = np.asarray(out["dibits"])[np.asarray(out["valid"])]
+    assert [[k, ts] for k, ts in _dmr_events(dev)] == meta["events"]
 
 
 def test_lsm_golden_byte_exact(manifest):
-    from sdrtrunk_tpu.decoders.lsm import LSMConfig, LSMDecoder
+    from sdrtrunk_jax.decoders.lsm import LSMConfig, LSMDecoder
     meta = manifest["lsm"]
     fs = meta["sample_rate"]
     iq = generators.lsm_modulate(_p25_tx(meta["seed"]),
@@ -114,5 +114,5 @@ def test_lsm_golden_byte_exact(manifest):
     assert np.array_equal(golden[:len(dibits)], dibits)
     assert _p25_events(dibits, with_opcode=False) == meta["events"]
     out, _ = dec(jnp.asarray(iq), dec.init_state())
-    tpu = np.asarray(out["dibits"])[np.asarray(out["valid"])]
-    assert _p25_events(tpu, with_opcode=False) == meta["events"]
+    dev = np.asarray(out["dibits"])[np.asarray(out["valid"])]
+    assert _p25_events(dev, with_opcode=False) == meta["events"]

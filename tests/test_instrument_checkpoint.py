@@ -3,14 +3,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sdrtrunk_tpu.decoders import NBFMConfig, NBFMDecoder
-from sdrtrunk_tpu.dsp.instrument import (best_eye, constellation_metrics,
+from sdrtrunk_jax.decoders import NBFMConfig, NBFMDecoder
+from sdrtrunk_jax.dsp.instrument import (best_eye, constellation_metrics,
                                          dqpsk_constellation, eye_diagram,
                                          eye_opening, fsk_symbol_trace)
-from sdrtrunk_tpu.runtime.checkpoint import (StateCheckpointError,
+from sdrtrunk_jax.runtime.checkpoint import (StateCheckpointError,
                                              load_state, save_state,
                                              state_fingerprint)
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.signal import generators
 
 
 class TestEyeDiagram:
@@ -37,7 +37,7 @@ class TestEyeDiagram:
         assert dirty < clean
 
     def test_symbol_trace_levels(self):
-        from sdrtrunk_tpu.dsp.instrument import integrate_and_dump
+        from sdrtrunk_jax.dsp.instrument import integrate_and_dump
         audio, sps = self._c4fm_audio()
         filtered = integrate_and_dump(audio, sps)
         # search symbol phase for the best 4-level clustering

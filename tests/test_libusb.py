@@ -7,10 +7,10 @@ import time
 
 import pytest
 
-from sdrtrunk_tpu.sources.libusb import (BulkStreamer, DeviceInfo,
+from sdrtrunk_jax.sources.libusb import (BulkStreamer, DeviceInfo,
                                          LibUsbContext, available,
                                          classify, discover_tuners)
-from sdrtrunk_tpu.sources.usb import TransferState, UsbError
+from sdrtrunk_jax.sources.usb import TransferState, UsbError
 
 
 @pytest.mark.skipif(not available(), reason="libusb-1.0 not installed")

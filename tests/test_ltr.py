@@ -5,10 +5,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.decoders.ltr import LTRConfig, LTRDecoder
-from sdrtrunk_tpu.protocol.ltr import (LTRFramer, LTRMessage, LTRMessageType,
+from sdrtrunk_jax.decoders.ltr import LTRConfig, LTRDecoder
+from sdrtrunk_jax.protocol.ltr import (LTRFramer, LTRMessage, LTRMessageType,
                                        ltr_checksum, ltr_encode_word)
-from sdrtrunk_tpu.protocol.bits import dibits_to_bits
+from sdrtrunk_jax.protocol.bits import dibits_to_bits
 
 
 def test_word_roundtrip_and_types():
@@ -100,7 +100,7 @@ def test_ltr_end_to_end():
 
 
 def test_passport_word_roundtrip():
-    from sdrtrunk_tpu.protocol.passport import (PassportFramer,
+    from sdrtrunk_jax.protocol.passport import (PassportFramer,
                                                 PassportMessageType,
                                                 passport_encode_word)
     w = passport_encode_word(dcc=1, lcn=100, site=5, group=1234,
@@ -124,7 +124,7 @@ def test_passport_word_roundtrip():
 
 
 def test_passport_end_to_end():
-    from sdrtrunk_tpu.protocol.passport import (PassportFramer,
+    from sdrtrunk_jax.protocol.passport import (PassportFramer,
                                                 passport_encode_word)
     rng = np.random.default_rng(9)
     words = [passport_encode_word(0, 55, 3, 999, 0, 20)] * 2

@@ -3,12 +3,12 @@ closed-loop against ltrnet_encode_word (the reference is receive-only).
 """
 import numpy as np
 
-from sdrtrunk_tpu.protocol.bits import from_int
-from sdrtrunk_tpu.protocol.ltr.ltrnet import (LtrNetFramer, LtrNetMessageType,
+from sdrtrunk_jax.protocol.bits import from_int
+from sdrtrunk_jax.protocol.ltr.ltrnet import (LtrNetFramer, LtrNetMessageType,
                                               LtrNetTracker,
                                               ltrnet_encode_word,
                                               parse_ltrnet)
-from sdrtrunk_tpu.protocol.ltr.messages import ltr_checksum, SYNC_OSW
+from sdrtrunk_jax.protocol.ltr.messages import ltr_checksum, SYNC_OSW
 
 T = LtrNetMessageType
 
@@ -118,7 +118,7 @@ def test_ltrnet_end_to_end_fsk():
     """LTR-Net words -> square FSK audio -> LTRDecoder scan ->
     LtrNetFramer -> tracker events (the full signal chain)."""
     import jax.numpy as jnp
-    from sdrtrunk_tpu.decoders.ltr import LTRDecoder
+    from sdrtrunk_jax.decoders.ltr import LTRDecoder
 
     rng = np.random.default_rng(3)
     words = [

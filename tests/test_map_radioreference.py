@@ -5,12 +5,12 @@ import json
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.map_service import MapService
-from sdrtrunk_tpu.runtime.events import DecodeEvent, DecodeEventType
-from sdrtrunk_tpu.runtime.identifiers import (Identifier,
+from sdrtrunk_jax.map_service import MapService
+from sdrtrunk_jax.runtime.events import DecodeEvent, DecodeEventType
+from sdrtrunk_jax.runtime.identifiers import (Identifier,
                                               IdentifierCollection,
                                               IdentifierRole)
-from sdrtrunk_tpu.service.radioreference import (LoginStatus,
+from sdrtrunk_jax.service.radioreference import (LoginStatus,
                                                  RadioReferenceClient,
                                                  RadioReferenceError)
 

@@ -3,16 +3,16 @@ P25P1 LDU -> AudioSegment end-to-end flow (VERDICT round-1 item 3)."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.audio.mbe import (FakeMBECodec, MBEAudioModule,
+from sdrtrunk_jax.audio.mbe import (FakeMBECodec, MBEAudioModule,
                                     MBECallSequenceRecorder, MBEFrameType,
                                     load_codec, read_call_sequence)
-from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler, P25P1Framer
-from sdrtrunk_tpu.protocol.p25p1.hdu import hdu_encode, tdulc_encode
-from sdrtrunk_tpu.protocol.p25p1.lc import lc_build_group_voice
-from sdrtrunk_tpu.protocol.p25p1.ldu import ldu1_encode
-from sdrtrunk_tpu.protocol.p25p1.messages import decode_frame
-from sdrtrunk_tpu.runtime.p25_state import P25P1DecoderState
+from sdrtrunk_jax.protocol.p25p1.duid import DUID
+from sdrtrunk_jax.protocol.p25p1.framer import P25P1FrameAssembler, P25P1Framer
+from sdrtrunk_jax.protocol.p25p1.hdu import hdu_encode, tdulc_encode
+from sdrtrunk_jax.protocol.p25p1.lc import lc_build_group_voice
+from sdrtrunk_jax.protocol.p25p1.ldu import ldu1_encode
+from sdrtrunk_jax.protocol.p25p1.messages import decode_frame
+from sdrtrunk_jax.runtime.p25_state import P25P1DecoderState
 
 
 def test_fake_codec_deterministic():
@@ -93,7 +93,7 @@ def test_p25p1_ldu_call_to_audio_segment(tmp_path):
 
 def test_ambe_frames_p25p2():
     """VOICE_4 timeslot frames flow through the P25P2 state's audio."""
-    from sdrtrunk_tpu.runtime.p25p2_state import P25P2DecoderState
+    from sdrtrunk_jax.runtime.p25p2_state import P25P2DecoderState
 
     rng = np.random.default_rng(2)
     audio = [MBEAudioModule(codec=FakeMBECodec(),

@@ -3,7 +3,7 @@ reference FrequencyErrorCorrectionManager.java:32-143 semantics)."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.runtime.metrics import ChannelMetrics, FrequencyErrorMonitor
+from sdrtrunk_jax.runtime.metrics import ChannelMetrics, FrequencyErrorMonitor
 
 
 class _Frame:
@@ -70,11 +70,11 @@ def test_orchestrator_ppm_correction_end_to_end():
     mixer retune brings the residual PLL error near zero."""
     import jax.numpy as jnp
 
-    from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-    from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
-    from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
-    from sdrtrunk_tpu.signal import generators
+    from sdrtrunk_jax.protocol.p25p1.duid import DUID
+    from sdrtrunk_jax.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
+    from sdrtrunk_jax.runtime.orchestrator import Orchestrator
+    from sdrtrunk_jax.signal import generators
 
     fs = 64 * 12500.0
     center = 460e6

@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import pytest
 from scipy import signal as sps
 
-from sdrtrunk_tpu.dsp import design
-from sdrtrunk_tpu.dsp.misc import (
+from sdrtrunk_jax.dsp import design
+from sdrtrunk_jax.dsp.misc import (
     goertzel_magnitude, goertzel_power, biquad_design, biquad_apply,
     cma_equalize, iq_correction, real_to_complex)
-from sdrtrunk_tpu.dsp.cic import prime_factors, cic_decimate, CICChannel
-from sdrtrunk_tpu.dsp.synthesizer import TwoChannelSynthesizer, synthesize_two
-from sdrtrunk_tpu.dsp.channelizer import Channelizer
+from sdrtrunk_jax.dsp.cic import prime_factors, cic_decimate, CICChannel
+from sdrtrunk_jax.dsp.synthesizer import TwoChannelSynthesizer, synthesize_two
+from sdrtrunk_jax.dsp.channelizer import Channelizer
 
 
 def test_goertzel_detects_tone():
@@ -197,7 +197,7 @@ class TestDFTProcessor:
     """Streaming frame-rate DFT (spectrum/DFTProcessor.java role)."""
 
     def test_frame_cadence_and_tone_bin(self):
-        from sdrtrunk_tpu.dsp.dft_processor import DFTProcessor
+        from sdrtrunk_jax.dsp.dft_processor import DFTProcessor
         fs = 100_000.0
         proc = DFTProcessor(fs, fft_size=1024, frame_rate=20.0)
         # 0.5 s of a +10 kHz tone -> exactly 10 frames
@@ -211,7 +211,7 @@ class TestDFTProcessor:
         assert peak == 512 + round(1024 * 10_000.0 / fs)
 
     def test_chunked_equals_oneshot(self):
-        from sdrtrunk_tpu.dsp.dft_processor import DFTProcessor
+        from sdrtrunk_jax.dsp.dft_processor import DFTProcessor
         fs = 50_000.0
         rng = np.random.default_rng(0)
         x = (rng.standard_normal(25_000)
@@ -224,7 +224,7 @@ class TestDFTProcessor:
         assert np.allclose(chunked, one, atol=1e-4)
 
     def test_frame_rate_bounds_and_source_events(self):
-        from sdrtrunk_tpu.dsp.dft_processor import DFTProcessor
+        from sdrtrunk_jax.dsp.dft_processor import DFTProcessor
         import pytest as _pytest
         with _pytest.raises(ValueError):
             DFTProcessor(48_000.0, frame_rate=0.5)

@@ -1,6 +1,6 @@
 """monitor CLI: the live Orchestrator as a product surface.
 
-VERDICT r4 item 1: `sdrtrunk_tpu monitor --playlist p.json --input
+VERDICT r4 item 1: `sdrtrunk_jax monitor --playlist p.json --input
 capture.wav` must decode a trunked capture end-to-end with traffic
 following and write events + audio. The capture here is the same
 synthetic P25 control+traffic scene as test_orchestrator (identical
@@ -11,9 +11,9 @@ import json
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.config import (ChannelConfig, DecodeConfig, Playlist,
+from sdrtrunk_jax.config import (ChannelConfig, DecodeConfig, Playlist,
                                  RecordConfig, SourceConfig)
-from sdrtrunk_tpu.monitor import plan_from_playlist
+from sdrtrunk_jax.monitor import plan_from_playlist
 
 from test_orchestrator import (BAUD, CENTER_HZ, CONTROL_OFF, FS,
                                TRAFFIC_OFF, _control_stream,
@@ -21,8 +21,8 @@ from test_orchestrator import (BAUD, CENTER_HZ, CONTROL_OFF, FS,
 
 
 def _write_capture(path) -> None:
-    from sdrtrunk_tpu.io.wave import write_complex_wave
-    from sdrtrunk_tpu.signal import generators
+    from sdrtrunk_jax.io.wave import write_complex_wave
+    from sdrtrunk_jax.signal import generators
     duration_s = 2.6
     total_dibits = int(duration_s * BAUD)
     rng = np.random.default_rng(7)
@@ -45,7 +45,7 @@ def _write_capture(path) -> None:
 
 @pytest.fixture(scope="module")
 def monitor_run(tmp_path_factory, capsys_module=None):
-    from sdrtrunk_tpu.cli import main
+    from sdrtrunk_jax.cli import main
     tmp = tmp_path_factory.mktemp("monitor")
     capture = tmp / "capture.wav"
     _write_capture(capture)
@@ -99,9 +99,9 @@ def test_monitor_recording_taps(monitor_run):
     channel's dibit stream lands as a reference-format .bits file and
     the wideband capture as an IQ wave (ComplexBufferWaveRecorder /
     BinaryRecorder roles, live)."""
-    from sdrtrunk_tpu.audio.recorder import BitsReader
-    from sdrtrunk_tpu.io.wave import read_complex_wave
-    from sdrtrunk_tpu.protocol.p25p1 import P25P1Framer
+    from sdrtrunk_jax.audio.recorder import BitsReader
+    from sdrtrunk_jax.io.wave import read_complex_wave
+    from sdrtrunk_jax.protocol.p25p1 import P25P1Framer
 
     rc, tmp, audio_dir, events = monitor_run
     bits_path = audio_dir / "Control.bits"

@@ -5,12 +5,12 @@ a fake Icecast socket as MPEG frames through the streaming manager."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.audio.mpeg import (FRAME_BYTES, FRAME_SAMPLES,
+from sdrtrunk_jax.audio.mpeg import (FRAME_BYTES, FRAME_SAMPLES,
                                      GRANULES, QUANT_BITS, SUBBANDS,
                                      MpegLayer1Encoder,
                                      mpeg_layer1_encoder,
                                      _SCALEFACTORS)
-from sdrtrunk_tpu.audio.segments import AudioSegment
+from sdrtrunk_jax.audio.segments import AudioSegment
 
 
 def _bits(data: bytes) -> np.ndarray:
@@ -112,7 +112,7 @@ def test_reconstruction_snr():
 
 
 def test_segment_to_fake_icecast_socket():
-    from sdrtrunk_tpu.audio.streaming import (AudioStreamingManager,
+    from sdrtrunk_jax.audio.streaming import (AudioStreamingManager,
                                               IcecastSourceClient,
                                               StreamConfig)
 

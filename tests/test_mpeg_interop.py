@@ -11,7 +11,7 @@ bitstream a real decoder reconstructs to the original audio."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.audio.mpeg import (FRAME_BYTES, MpegLayer1Encoder,
+from sdrtrunk_jax.audio.mpeg import (FRAME_BYTES, MpegLayer1Encoder,
                                      _prototype)
 
 # ISO 11172-3 Table B.1 scalefactors (independent reconstruction)
@@ -222,7 +222,7 @@ def _l2_decode_frame(bits: _Bits) -> np.ndarray:
 
 
 def test_l2_frame_structure_and_sync():
-    from sdrtrunk_tpu.audio.mpeg import L2_FRAME_BYTES, MpegLayer2Encoder
+    from sdrtrunk_jax.audio.mpeg import L2_FRAME_BYTES, MpegLayer2Encoder
     enc = MpegLayer2Encoder(pcm_rate=8000.0)
     pcm = 0.5 * np.sin(2 * np.pi * 700.0 * np.arange(8000) / 8000.0)
     data = enc.encode(pcm.astype(np.float32))
@@ -233,7 +233,7 @@ def test_l2_frame_structure_and_sync():
 
 
 def test_l2_independent_decoder_reconstructs_audio():
-    from sdrtrunk_tpu.audio.mpeg import L2_FRAME_BYTES, MpegLayer2Encoder
+    from sdrtrunk_jax.audio.mpeg import L2_FRAME_BYTES, MpegLayer2Encoder
     enc = MpegLayer2Encoder(pcm_rate=8000.0)
     t = np.arange(16000) / 8000.0
     pcm = (0.45 * np.sin(2 * np.pi * 700.0 * t)
@@ -276,7 +276,7 @@ def test_l2_independent_decoder_reconstructs_audio():
 def test_iso_requant_grid_roundtrip():
     """Encoder codes land exactly on the ISO decoder's requantization
     grid (no half-step DC bias)."""
-    from sdrtrunk_tpu.audio.mpeg import QUANT_BITS
+    from sdrtrunk_jax.audio.mpeg import QUANT_BITS
     nb = QUANT_BITS
     levels = (1 << nb) - 1
     xs = np.linspace(-0.95, 0.95, 101)

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.dsp.afsk import AFSK1200Demodulator
-from sdrtrunk_tpu.protocol import bits as B
-from sdrtrunk_tpu.protocol.mpt1327 import (MPT1327Framer, MPT1327MessageType,
+from sdrtrunk_jax.dsp.afsk import AFSK1200Demodulator
+from sdrtrunk_jax.protocol import bits as B
+from sdrtrunk_jax.protocol.mpt1327 import (MPT1327Framer, MPT1327MessageType,
                                            SYNC_CONTROL, mpt_checksum,
                                            mpt_decode_codeword,
                                            mpt_encode_codeword)

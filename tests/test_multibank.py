@@ -7,14 +7,14 @@ per channel, module/decode/DecoderFactory.java:117-183)."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol.bits import from_int
-from sdrtrunk_tpu.protocol.ltr.messages import (LTRMessageType,
+from sdrtrunk_jax.protocol.bits import from_int
+from sdrtrunk_jax.protocol.ltr.messages import (LTRMessageType,
                                                 ltr_encode_word)
-from sdrtrunk_tpu.runtime.events import DecodeEventType
-from sdrtrunk_tpu.runtime.identifiers import IdentifierRole
-from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
-from sdrtrunk_tpu.runtime.identifiers import IdentifierCollection
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.runtime.events import DecodeEventType
+from sdrtrunk_jax.runtime.identifiers import IdentifierRole
+from sdrtrunk_jax.runtime.orchestrator import Orchestrator
+from sdrtrunk_jax.runtime.identifiers import IdentifierCollection
+from sdrtrunk_jax.signal import generators
 
 import test_orchestrator as to
 from test_ltr import _fsk_modulate
@@ -26,16 +26,16 @@ DMR_SOURCE = 0x12345
 
 
 def _dmr_voice_stream(total_dibits: int) -> np.ndarray:
-    from sdrtrunk_tpu.protocol.dmr.framer import (DataType,
+    from sdrtrunk_jax.protocol.dmr.framer import (DataType,
                                                   DMRBurstAssembler,
                                                   VOICE_FRAME_ORDER)
-    from sdrtrunk_tpu.protocol.dmr.lc import (MASK_TERMINATOR,
+    from sdrtrunk_jax.protocol.dmr.lc import (MASK_TERMINATOR,
                                               MASK_VOICE_HEADER,
                                               embedded_lc_encode,
                                               full_lc_encode,
                                               lc_build_group_voice)
-    from sdrtrunk_tpu.protocol.dmr.sync import DMRSyncPattern
-    from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_encode
+    from sdrtrunk_jax.protocol.dmr.sync import DMRSyncPattern
+    from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_encode
 
     rng = np.random.default_rng(5)
     asm = DMRBurstAssembler(color_code=1)
@@ -134,7 +134,7 @@ def test_mix_p25_grant_followed(mix_run):
     slot = next(s for s in orch.slots
                 if s.kind == "c4fm" and s.frequency_hz == freq)
     assert slot.processor.frame_count >= 4
-    from sdrtrunk_tpu.protocol.p25p1.duid import DUID
+    from sdrtrunk_jax.protocol.p25p1.duid import DUID
     duids = [m.duid for m in slot.processor.messages if m.valid]
     assert duids.count(DUID.LDU1) == 2
 
@@ -179,10 +179,10 @@ def test_mpt1327_live_trunking():
     the control channel grant an analog voice channel through the
     channel map; the orchestrator activates a slot there mid-run and
     assembles its FM voice (MPT1327TrafficChannelManager.java role)."""
-    from sdrtrunk_tpu.protocol import bits as B
-    from sdrtrunk_tpu.protocol.mpt1327 import (SYNC_CONTROL,
+    from sdrtrunk_jax.protocol import bits as B
+    from sdrtrunk_jax.protocol.mpt1327 import (SYNC_CONTROL,
                                                mpt_encode_codeword)
-    from sdrtrunk_tpu.runtime.traffic import FrequencyBand
+    from sdrtrunk_jax.runtime.traffic import FrequencyBand
     from test_mpt1327 import _afsk_modulate, _gtc_data
 
     fs = 64 * 12500.0
@@ -231,7 +231,7 @@ def test_mpt1327_live_trunking():
         if slot.active:
             orch._slot_flush_drain(slot)
 
-    from sdrtrunk_tpu.protocol.mpt1327 import MPT1327MessageType
+    from sdrtrunk_jax.protocol.mpt1327 import MPT1327MessageType
     ctrl = orch.slots[0]
     gtcs = [m for m in ctrl.processor.messages
             if m.message_type == MPT1327MessageType.GTC]

@@ -29,7 +29,7 @@ def test_two_process_pipeline():
     env["PYTHONPATH"] = REPO
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "sdrtrunk_tpu.parallel.multiprocess",
+            [sys.executable, "-m", "sdrtrunk_jax.parallel.multiprocess",
              "--coordinator", f"127.0.0.1:{port}",
              "--num-processes", "2", "--process-id", str(i)],
             cwd=REPO, env=env, stdout=subprocess.PIPE,
@@ -73,7 +73,7 @@ def test_cross_process_efficiency():
     env["PYTHONPATH"] = REPO
     single = subprocess.run(
         [sys.executable, "-c", (
-            "from sdrtrunk_tpu.parallel.multiprocess import worker\n"
+            "from sdrtrunk_jax.parallel.multiprocess import worker\n"
             "worker('127.0.0.1:%d', 1, 0, local_devices=4, blocks=2048)\n"
         ) % _free_port()],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
@@ -86,7 +86,7 @@ def test_cross_process_efficiency():
     port = _free_port()
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "sdrtrunk_tpu.parallel.multiprocess",
+            [sys.executable, "-m", "sdrtrunk_jax.parallel.multiprocess",
              "--coordinator", f"127.0.0.1:{port}",
              "--num-processes", "2", "--process-id", str(i),
              "--blocks", "2048"],

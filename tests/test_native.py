@@ -5,7 +5,7 @@ import threading
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.io.native import (IqRingBuffer, convert_packed12_iq,
+from sdrtrunk_jax.io.native import (IqRingBuffer, convert_packed12_iq,
                                     convert_s16_iq, convert_u8_iq,
                                     native_available)
 

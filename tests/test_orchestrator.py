@@ -11,16 +11,16 @@ P25TrafficChannelManager.java:229 behavior as one deterministic loop.
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol.bits import from_int
-from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler
-from sdrtrunk_tpu.protocol.p25p1.hdu import hdu_encode, tdulc_encode
-from sdrtrunk_tpu.protocol.p25p1.lc import lc_build_group_voice
-from sdrtrunk_tpu.protocol.p25p1.ldu import ldu1_encode
-from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
-from sdrtrunk_tpu.runtime.identifiers import IdentifierRole
-from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.protocol.bits import from_int
+from sdrtrunk_jax.protocol.p25p1.duid import DUID
+from sdrtrunk_jax.protocol.p25p1.framer import P25P1FrameAssembler
+from sdrtrunk_jax.protocol.p25p1.hdu import hdu_encode, tdulc_encode
+from sdrtrunk_jax.protocol.p25p1.lc import lc_build_group_voice
+from sdrtrunk_jax.protocol.p25p1.ldu import ldu1_encode
+from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
+from sdrtrunk_jax.runtime.identifiers import IdentifierRole
+from sdrtrunk_jax.runtime.orchestrator import Orchestrator
+from sdrtrunk_jax.signal import generators
 
 CENTER_HZ = 460_000_000.0
 CONTROL_OFF = 25_000.0          # control channel at +25 kHz (bin +2)

@@ -7,10 +7,10 @@ import json
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-from sdrtrunk_tpu.runtime.identifiers import IdentifierRole
-from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.protocol.p25p1.duid import DUID
+from sdrtrunk_jax.runtime.identifiers import IdentifierRole
+from sdrtrunk_jax.runtime.orchestrator import Orchestrator
+from sdrtrunk_jax.signal import generators
 
 import test_orchestrator as to
 
@@ -100,7 +100,7 @@ def test_bank_metrics_stream(bank_run):
 
 @pytest.mark.parametrize("audio_format", ["mulaw8", "int16"])
 def test_analog_bank_audio_segments(audio_format):
-    """NBFM bank mode: device ships companded-8-bit (tunnel) or int16
+    """NBFM bank mode: device ships companded-8-bit (default) or int16
     (PCIe) PCM + packed gate; host assembles per-slot AudioSegments
     (the analog leg of the 1000-channel target at CPU test scale)."""
     fs = 32 * 12500.0
@@ -110,7 +110,7 @@ def test_analog_bank_audio_segments(audio_format):
     n = int(fs * dur) // (m * 25) * (m * 25)
     t = np.arange(n) / fs
     wide = np.zeros(n, np.complex64)
-    from sdrtrunk_tpu.signal.generators import nbfm_modulate
+    from sdrtrunk_jax.signal.generators import nbfm_modulate
     offs = [2 * 12500.0, -5 * 12500.0]
     for k, off in enumerate(offs):
         audio_in = 0.8 * np.sin(2 * np.pi * (500.0 + 300 * k)
@@ -135,7 +135,7 @@ def test_analog_bank_audio_segments(audio_format):
                         ppm_correction=False, bank_mode=True,
                         audio_format=audio_format)
     orch._activate(460e6 + offs[1], __import__(
-        "sdrtrunk_tpu.runtime.identifiers",
+        "sdrtrunk_jax.runtime.identifiers",
         fromlist=["IdentifierCollection"]).IdentifierCollection())
     orch.run()
     for slot in orch.slots:
@@ -156,12 +156,12 @@ def test_dmr_bank_grant_voice_teardown():
     AudioSegment — the DMR leg of the 1000-channel tier at CPU test
     scale (bank framer + DMRBankProcessor instead of per-slot
     framers)."""
-    from sdrtrunk_tpu.protocol.bits import from_int
-    from sdrtrunk_tpu.protocol.dmr.csbk import csbk_encode
-    from sdrtrunk_tpu.protocol.dmr.framer import (DataType,
+    from sdrtrunk_jax.protocol.bits import from_int
+    from sdrtrunk_jax.protocol.dmr.csbk import csbk_encode
+    from sdrtrunk_jax.protocol.dmr.framer import (DataType,
                                                   DMRBurstAssembler)
-    from sdrtrunk_tpu.protocol.dmr.sync import DMRSyncPattern
-    from sdrtrunk_tpu.runtime.traffic import FrequencyBand
+    from sdrtrunk_jax.protocol.dmr.sync import DMRSyncPattern
+    from sdrtrunk_jax.runtime.traffic import FrequencyBand
     from test_multibank import _dmr_voice_stream, DMR_GROUP
 
     fs = to.FS
@@ -291,9 +291,9 @@ def test_lsm_bank_mode_decodes():
     """LSM (CQPSK) rides the P25P1 bank tier: Gardner demod on device,
     the same 4-pattern sync correlation + P25P1BankFramer on host
     (round-5 _BANK_KINDS addition)."""
-    from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-    from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
+    from sdrtrunk_jax.protocol.p25p1.duid import DUID
+    from sdrtrunk_jax.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
 
     fs = 32 * 12500.0
     m = 32
@@ -335,9 +335,9 @@ def test_ltr_mixed_bank_mode():
     """LTR rides the MIXED bank leg (round-5 analog-trunking tier):
     companded voice + gates + compacted 300-baud FSK bits in one
     transfer; per-slot LTR framers decode OSWs and voice assembles."""
-    from sdrtrunk_tpu.protocol.ltr.messages import ltr_encode_word
+    from sdrtrunk_jax.protocol.ltr.messages import ltr_encode_word
     from test_ltr import _fsk_modulate
-    from sdrtrunk_tpu.signal import generators as gen
+    from sdrtrunk_jax.signal import generators as gen
 
     fs = 32 * 12500.0
     m = 32
@@ -385,10 +385,10 @@ def test_ltr_mixed_bank_mode():
 def test_mpt1327_mixed_bank_mode():
     """MPT1327 control channel through the mixed bank leg: 1200-baud
     AFSK codewords decode via the per-slot framer at bank scale."""
-    from sdrtrunk_tpu.protocol.mpt1327 import (SYNC_CONTROL,
+    from sdrtrunk_jax.protocol.mpt1327 import (SYNC_CONTROL,
                                                mpt_encode_codeword)
     from test_mpt1327 import _afsk_modulate, _alh_data
-    from sdrtrunk_tpu.signal import generators as gen
+    from sdrtrunk_jax.signal import generators as gen
 
     fs = 32 * 12500.0
     m = 32

@@ -24,11 +24,11 @@ pytestmark = pytest.mark.slow   # ~5 min of XLA compiles (P25P2 fixture
 # in the default suite by test_orchestrator.py, test_orchestrator_bank
 # .py and the per-protocol decoder/state tests
 
-from sdrtrunk_tpu.protocol.bits import from_int
-from sdrtrunk_tpu.runtime.identifiers import IdentifierForm, IdentifierRole
-from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
-from sdrtrunk_tpu.runtime.traffic import FrequencyBand
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.protocol.bits import from_int
+from sdrtrunk_jax.runtime.identifiers import IdentifierForm, IdentifierRole
+from sdrtrunk_jax.runtime.orchestrator import Orchestrator
+from sdrtrunk_jax.runtime.traffic import FrequencyBand
+from sdrtrunk_jax.signal import generators
 
 CENTER_HZ = 460_000_000.0
 CONTROL_OFF = 25_000.0
@@ -67,7 +67,7 @@ def _pad(dibits, total, rng):
 # --------------------------------------------------------------- DMR
 
 def _dmr_grant_csbk():
-    from sdrtrunk_tpu.protocol.dmr.csbk import csbk_encode
+    from sdrtrunk_jax.protocol.dmr.csbk import csbk_encode
     d = np.zeros(64, np.uint8)
     d[0:12] = from_int(CHAN_NUM, 12)
     d[12] = 0                                # timeslot 1
@@ -78,17 +78,17 @@ def _dmr_grant_csbk():
 
 @pytest.fixture(scope="module")
 def dmr_run():
-    from sdrtrunk_tpu.protocol.dmr.framer import (DataType,
+    from sdrtrunk_jax.protocol.dmr.framer import (DataType,
                                                   DMRBurstAssembler,
                                                   VOICE_FRAME_ORDER)
-    from sdrtrunk_tpu.protocol.dmr.lc import (MASK_TERMINATOR,
+    from sdrtrunk_jax.protocol.dmr.lc import (MASK_TERMINATOR,
                                               MASK_VOICE_HEADER,
                                               embedded_lc_encode,
                                               full_lc_encode,
                                               lc_build_group_voice)
-    from sdrtrunk_tpu.protocol.dmr.sync import DMRSyncPattern
-    from sdrtrunk_tpu.protocol.dmr.csbk import csbk_encode
-    from sdrtrunk_tpu.protocol.edac.bptc import bptc_196_96_encode
+    from sdrtrunk_jax.protocol.dmr.sync import DMRSyncPattern
+    from sdrtrunk_jax.protocol.dmr.csbk import csbk_encode
+    from sdrtrunk_jax.protocol.edac.bptc import bptc_196_96_encode
 
     total_dibits = int(2.6 * BAUD)
     rng = np.random.default_rng(31)
@@ -172,10 +172,10 @@ def test_dmr_teardown_frees_slot(dmr_run):
 # --------------------------------------------------------------- P25P2
 
 def _p25p2_source():
-    from sdrtrunk_tpu.protocol.p25p2 import P25P2FragmentAssembler
-    from sdrtrunk_tpu.protocol.p25p2.mac import (build_mac_pdu,
+    from sdrtrunk_jax.protocol.p25p2 import P25P2FragmentAssembler
+    from sdrtrunk_jax.protocol.p25p2.mac import (build_mac_pdu,
                                                  mac_structure_encode)
-    from sdrtrunk_tpu.protocol.p25p2.timeslot import (MacPduType,
+    from sdrtrunk_jax.protocol.p25p2.timeslot import (MacPduType,
                                                       facch_encode,
                                                       sacch_encode,
                                                       voice4_encode)
@@ -386,7 +386,7 @@ def test_nbfm_squelch_gated_segment(nbfm_run):
 
 
 def test_nbfm_audio_reaches_playback_manager(nbfm_run):
-    from sdrtrunk_tpu.audio.playback import (AudioPlaybackManager,
+    from sdrtrunk_jax.audio.playback import (AudioPlaybackManager,
                                              CollectorSink)
     sinks = {}
 

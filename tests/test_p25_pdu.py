@@ -2,19 +2,19 @@
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol.bits import from_int
-from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-from sdrtrunk_tpu.protocol.p25p1.framer import (P25P1FrameAssembler,
+from sdrtrunk_jax.protocol.bits import from_int
+from sdrtrunk_jax.protocol.p25p1.duid import DUID
+from sdrtrunk_jax.protocol.p25p1.framer import (P25P1FrameAssembler,
                                                 P25P1Framer)
-from sdrtrunk_tpu.protocol.p25p1.lc import lc_parse
-from sdrtrunk_tpu.protocol.p25p1.messages import decode_frame
-from sdrtrunk_tpu.protocol.p25p1.pdu import (assemble_packet,
+from sdrtrunk_jax.protocol.p25p1.lc import lc_parse
+from sdrtrunk_jax.protocol.p25p1.messages import decode_frame
+from sdrtrunk_jax.protocol.p25p1.pdu import (assemble_packet,
                                              build_packet_blocks,
                                              pdu_decode_block,
                                              pdu_decode_header,
                                              pdu_encode_block,
                                              pdu_encode_header)
-from sdrtrunk_tpu.protocol.p25p1.tsbk import (decode_service_options,
+from sdrtrunk_jax.protocol.p25p1.tsbk import (decode_service_options,
                                               tsbk_decode, tsbk_encode)
 
 
@@ -126,7 +126,7 @@ def test_tsbk_opcode_fields_rfss():
 def test_tsbk_opcode_names_and_breadth():
     """Every standard OSP opcode decodes with a name; grants/updates/
     status/sccb/iden all produce fields."""
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import OSP_OPCODES, _OSP_FIELDS
+    from sdrtrunk_jax.protocol.p25p1.tsbk import OSP_OPCODES, _OSP_FIELDS
     rng = np.random.default_rng(1)
     covered = 0
     for opcode in OSP_OPCODES:
@@ -190,8 +190,8 @@ def test_pdu_ip_dispatch_lrrp():
     """P25 packet data routes into the IP stack: assembled SAP-4 payload
     carrying IPV4/UDP/LRRP parses end-to-end (PacketMessageFactory
     routing parity)."""
-    from sdrtrunk_tpu.protocol.ip import ipv4_checksum
-    from sdrtrunk_tpu.protocol.p25p1.pdu import PDUSequence, pdu_dispatch
+    from sdrtrunk_jax.protocol.ip import ipv4_checksum
+    from sdrtrunk_jax.protocol.p25p1.pdu import PDUSequence, pdu_dispatch
 
     lrrp = bytes([0x0D, 3, 0x6C, 0x01, 0x2C])      # TRIGGERED + SPEED
     udp = bytes([0x0F, 0xA1, 0x0F, 0xA1,           # 4001 -> 4001
@@ -224,8 +224,8 @@ def test_pdu_sndcp_dispatch():
     Activate TDS Context Request and the outbound Accept both decode
     their typed fields (pdu/packet/sndcp/ActivateTdsContextRequest
     .java:38-49 / ActivateTdsContextAccept.java:41-55 layouts)."""
-    from sdrtrunk_tpu.protocol.p25p1.pdu import PDUSequence, pdu_dispatch
-    from sdrtrunk_tpu.protocol.p25p1.sndcp import parse_sndcp
+    from sdrtrunk_jax.protocol.p25p1.pdu import PDUSequence, pdu_dispatch
+    from sdrtrunk_jax.protocol.p25p1.sndcp import parse_sndcp
 
     # inbound request: byte0 0x01 -> pdu_type 0, version 1; byte1 0x51
     # -> nsapi 5, NAT dynamic(1); ip 10.0.0.9
@@ -281,7 +281,7 @@ def test_lrrp_extended_token_set():
     """The zero-length report tokens the reference names (REQUEST_3A,
     ALTITUDE_ACCURACY, TIME, ALTITUDE, HORIZONTAL_DIRECTION, REQUEST_62
     /64) parse in sequence without desync (TokenType.java parity)."""
-    from sdrtrunk_tpu.protocol.ip.lrrp import parse_lrrp
+    from sdrtrunk_jax.protocol.ip.lrrp import parse_lrrp
 
     body = bytes([
         0x36, 0x01,           # VERSION 1
@@ -307,9 +307,9 @@ def test_lrrp_extended_token_set():
 def test_unknown_opcode_counter():
     """Coverage gauge: contents whose opcode lacks a named structure
     count into ChannelMetrics.unknown_opcodes; known ones do not."""
-    from sdrtrunk_tpu.protocol.dmr.csbk import CSBK
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import TSBK
-    from sdrtrunk_tpu.runtime.metrics import ChannelMetrics
+    from sdrtrunk_jax.protocol.dmr.csbk import CSBK
+    from sdrtrunk_jax.protocol.p25p1.tsbk import TSBK
+    from sdrtrunk_jax.runtime.metrics import ChannelMetrics
 
     m = ChannelMetrics()
     m.content(TSBK(opcode=0x00, mfid=0, last_block=True,

@@ -6,17 +6,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.protocol import bits as B
-from sdrtrunk_tpu.protocol.p25p1 import DUID, NID, P25P1Framer, \
+from sdrtrunk_jax.protocol import bits as B
+from sdrtrunk_jax.protocol.p25p1 import DUID, NID, P25P1Framer, \
     P25P1FrameAssembler
-from sdrtrunk_tpu.protocol.p25p1.framer import payload_dibit_positions
-from sdrtrunk_tpu.protocol.p25p1.hdu import (hdu_decode, hdu_encode,
+from sdrtrunk_jax.protocol.p25p1.framer import payload_dibit_positions
+from sdrtrunk_jax.protocol.p25p1.hdu import (hdu_decode, hdu_encode,
                                              tdulc_decode, tdulc_encode)
-from sdrtrunk_tpu.protocol.p25p1.lc import lc_build_group_voice, lc_parse
-from sdrtrunk_tpu.protocol.p25p1.ldu import (ldu1_decode, ldu1_encode,
+from sdrtrunk_jax.protocol.p25p1.lc import lc_build_group_voice, lc_parse
+from sdrtrunk_jax.protocol.p25p1.ldu import (ldu1_decode, ldu1_encode,
                                              ldu2_decode, ldu2_encode)
-from sdrtrunk_tpu.protocol.p25p1.messages import decode_frame
-from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_decode, tsbk_encode
+from sdrtrunk_jax.protocol.p25p1.messages import decode_frame
+from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_decode, tsbk_encode
 
 
 def test_nid_roundtrip():
@@ -177,8 +177,8 @@ def test_framer_rotation_recovery():
 def test_p25_c4fm_end_to_end():
     """Full stack: TSBK -> frame -> C4FM modulate -> demod -> frame -> parse."""
     import jax
-    from sdrtrunk_tpu.decoders.c4fm import C4FMConfig, C4FMDecoder
-    from sdrtrunk_tpu.signal import generators
+    from sdrtrunk_jax.decoders.c4fm import C4FMConfig, C4FMDecoder
+    from sdrtrunk_jax.signal import generators
 
     asm = P25P1FrameAssembler(nac=0x293)
     rng = np.random.default_rng(7)
@@ -214,8 +214,8 @@ def test_motorola_lc_patch_group_words():
     whose patch group doubles as the call's group address."""
     import numpy as np
 
-    from sdrtrunk_tpu.protocol.bits import from_int
-    from sdrtrunk_tpu.protocol.p25p1.lc import MFID_MOTOROLA, lc_parse
+    from sdrtrunk_jax.protocol.bits import from_int
+    from sdrtrunk_jax.protocol.p25p1.lc import MFID_MOTOROLA, lc_parse
 
     b = np.zeros(72, np.uint8)
     b[2:8] = from_int(0x00, 6)            # opcode 0: patch group user

@@ -5,11 +5,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.protocol import bits as B
-from sdrtrunk_tpu.protocol.p25p2 import (P25P2FragmentAssembler, P25P2Framer,
+from sdrtrunk_jax.protocol import bits as B
+from sdrtrunk_jax.protocol.p25p2 import (P25P2FragmentAssembler, P25P2Framer,
                                          ScramblingSequence, isch_decode,
                                          isch_encode, lfsr_sequence)
-from sdrtrunk_tpu.protocol.p25p2.timeslot import (DataUnitID, MacPduType,
+from sdrtrunk_jax.protocol.p25p2.timeslot import (DataUnitID, MacPduType,
                                                   facch_encode, sacch_encode,
                                                   timeslot_decode,
                                                   voice4_encode)
@@ -72,7 +72,7 @@ def test_voice4_and_scrambling():
     ts = voice4_encode(frames)
     sc = ScramblingSequence(0xBEE, 0x42, 0x123)
     seg = sc.segment(5)
-    from sdrtrunk_tpu.protocol.p25p2.timeslot import DUID_POSITIONS
+    from sdrtrunk_jax.protocol.p25p2.timeslot import DUID_POSITIONS
     scrambled = ts ^ seg
     scrambled[DUID_POSITIONS] = ts[DUID_POSITIONS]
     dec = timeslot_decode(scrambled, 5, 1, seg)
@@ -119,8 +119,8 @@ def test_p25p2_modem_end_to_end():
     decision-directed timing core (the production default is Gardner for
     the linear H-DQPSK downlink — see tests/test_gardner.py)."""
     import jax
-    from sdrtrunk_tpu.decoders.p25p2 import P25P2Config, P25P2Decoder
-    from sdrtrunk_tpu.signal import generators
+    from sdrtrunk_jax.decoders.p25p2 import P25P2Config, P25P2Decoder
+    from sdrtrunk_jax.signal import generators
 
     wacn, system, nac = 0xA4BC3, 0x123, 0x29A
     rng = np.random.default_rng(3)

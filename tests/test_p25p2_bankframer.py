@@ -5,11 +5,11 @@ boundaries and per-slot scramble parameters."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol.bits import bits_to_dibits
-from sdrtrunk_tpu.protocol.p25p2 import P25P2Framer, P25P2FragmentAssembler
-from sdrtrunk_tpu.protocol.p25p2.bankframer import (P25P2BankFramer,
+from sdrtrunk_jax.protocol.bits import bits_to_dibits
+from sdrtrunk_jax.protocol.p25p2 import P25P2Framer, P25P2FragmentAssembler
+from sdrtrunk_jax.protocol.p25p2.bankframer import (P25P2BankFramer,
                                                     P25P2_SYNC_DIBITS)
-from sdrtrunk_tpu.protocol.p25p2.timeslot import (facch_encode,
+from sdrtrunk_jax.protocol.p25p2.timeslot import (facch_encode,
                                                   sacch_encode,
                                                   voice4_encode)
 

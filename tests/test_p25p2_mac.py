@@ -3,17 +3,17 @@ scrambler key learning from network status broadcasts."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.protocol.bits import from_int
-from sdrtrunk_tpu.protocol.p25p2 import P25P2FragmentAssembler, P25P2Framer
-from sdrtrunk_tpu.protocol.p25p2.mac import (MAC_OPCODE_NAMES,
+from sdrtrunk_jax.protocol.bits import from_int
+from sdrtrunk_jax.protocol.p25p2 import P25P2FragmentAssembler, P25P2Framer
+from sdrtrunk_jax.protocol.p25p2.mac import (MAC_OPCODE_NAMES,
                                              build_mac_pdu,
                                              mac_structure_encode,
                                              parse_mac_pdu)
-from sdrtrunk_tpu.protocol.p25p2.timeslot import (MacPduType, facch_encode,
+from sdrtrunk_jax.protocol.p25p2.timeslot import (MacPduType, facch_encode,
                                                   sacch_encode)
-from sdrtrunk_tpu.runtime.p25p2_state import P25P2DecoderState
-from sdrtrunk_tpu.runtime.state import ChannelState
-from sdrtrunk_tpu.runtime.traffic import TrafficChannelManager
+from sdrtrunk_jax.runtime.p25p2_state import P25P2DecoderState
+from sdrtrunk_jax.runtime.state import ChannelState
+from sdrtrunk_jax.runtime.traffic import TrafficChannelManager
 
 
 def _ptt_bits(group: int, source: int, algorithm: int = 0x80,

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from sdrtrunk_tpu.dsp.channelizer import Channelizer
-from sdrtrunk_tpu.dsp.extract import extract_channels, plan_channels
-from sdrtrunk_tpu.parallel.pipeline import ShardedChannelizerPipeline
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.dsp.channelizer import Channelizer
+from sdrtrunk_jax.dsp.extract import extract_channels, plan_channels
+from sdrtrunk_jax.parallel.pipeline import ShardedChannelizerPipeline
+from sdrtrunk_jax.signal import generators
 
 
 @pytest.fixture(scope="module")

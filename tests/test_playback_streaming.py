@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.audio.playback import (AudioOutput, AudioPlaybackManager,
+from sdrtrunk_jax.audio.playback import (AudioOutput, AudioPlaybackManager,
                                          CollectorSink)
-from sdrtrunk_tpu.audio.segments import AudioSegment
-from sdrtrunk_tpu.audio.streaming import (BroadcastifyCallClient,
+from sdrtrunk_jax.audio.segments import AudioSegment
+from sdrtrunk_jax.audio.streaming import (BroadcastifyCallClient,
                                           ShoutcastV1Client, StreamConfig)
 
 
@@ -110,7 +110,7 @@ class TestPlaybackManager:
 
 class TestShoutcast:
     def _config(self):
-        return StreamConfig(name="tpu-feed", host="h", port=8000,
+        return StreamConfig(name="jax-feed", host="h", port=8000,
                             password="pw")
 
     def test_handshake_ok(self):
@@ -120,7 +120,7 @@ class TestShoutcast:
         assert client.connect()
         sent = sock.sent.decode()
         assert sent.startswith("pw\r\n")
-        assert "icy-name:tpu-feed" in sent and "icy-br:16" in sent
+        assert "icy-name:jax-feed" in sent and "icy-br:16" in sent
         client.send(b"\xff\xfb")
         assert sock.sent.endswith(b"\xff\xfb")
 
@@ -176,9 +176,9 @@ class TestIcecastMpegEgress:
         Layer II must be a bitstream the independent ISO-text decoder
         (tests/test_mpeg_interop.py) reconstructs to the original
         tone."""
-        from sdrtrunk_tpu.audio.mpeg import L2_FRAME_BYTES
-        from sdrtrunk_tpu.audio.mpeg import mpeg_layer2_encoder
-        from sdrtrunk_tpu.audio.streaming import (AudioStreamingManager,
+        from sdrtrunk_jax.audio.mpeg import L2_FRAME_BYTES
+        from sdrtrunk_jax.audio.mpeg import mpeg_layer2_encoder
+        from sdrtrunk_jax.audio.streaming import (AudioStreamingManager,
                                                   IcecastSourceClient,
                                                   StreamConfig)
         from test_mpeg_interop import _Bits, _l2_decode_frame, _synthesis

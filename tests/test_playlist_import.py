@@ -4,7 +4,7 @@ config.py dataclasses with every field carried over."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.playlist_import import import_playlist_xml
+from sdrtrunk_jax.playlist_import import import_playlist_xml
 
 _XML = """<?xml version="1.0" encoding="UTF-8" standalone="yes"?>
 <playlist version="2">
@@ -123,7 +123,7 @@ def test_imported_playlist_saves_native(playlist, tmp_path):
     """Round-trip into the native JSON format."""
     out = tmp_path / "native.json"
     playlist.save(out)
-    from sdrtrunk_tpu.config import Playlist
+    from sdrtrunk_jax.config import Playlist
     loaded = Playlist.load(out)
     assert len(loaded.channels) == 3
     assert loaded.channels[0].decode.decoder == "p25p1"

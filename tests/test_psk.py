@@ -4,10 +4,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.decoders.c4fm import C4FMConfig, C4FMDecoder
-from sdrtrunk_tpu.dsp.interpolator import interpolator_bank
-from sdrtrunk_tpu.dsp.psk import DQPSKDemodulator, costas_gains
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.decoders.c4fm import C4FMConfig, C4FMDecoder
+from sdrtrunk_jax.dsp.interpolator import interpolator_bank
+from sdrtrunk_jax.dsp.psk import DQPSKDemodulator, costas_gains
+from sdrtrunk_jax.signal import generators
 
 
 def _align_mismatch(tx: np.ndarray, rx: np.ndarray, max_lag: int = 60):

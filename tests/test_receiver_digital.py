@@ -8,12 +8,12 @@ zero dibit errors, recovered per channel by the host framer.
 import numpy as np
 import jax.numpy as jnp
 
-from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler, P25P1Framer
-from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
-from sdrtrunk_tpu.protocol.p25p1.messages import decode_frame
-from sdrtrunk_tpu.receiver import WidebandReceiver
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.protocol.p25p1.duid import DUID
+from sdrtrunk_jax.protocol.p25p1.framer import P25P1FrameAssembler, P25P1Framer
+from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
+from sdrtrunk_jax.protocol.p25p1.messages import decode_frame
+from sdrtrunk_jax.receiver import WidebandReceiver
+from sdrtrunk_jax.signal import generators
 
 
 def _tx_dibits(opcode: int, seed: int, asm: P25P1FrameAssembler):

@@ -6,13 +6,13 @@ import json
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.runtime.events import (DecodeEvent, DecodeEventType)
-from sdrtrunk_tpu.runtime.eventlog import CSV_HEADER, DecodeEventLogger
-from sdrtrunk_tpu.runtime.identifiers import (Identifier,
+from sdrtrunk_jax.runtime.events import (DecodeEvent, DecodeEventType)
+from sdrtrunk_jax.runtime.eventlog import CSV_HEADER, DecodeEventLogger
+from sdrtrunk_jax.runtime.identifiers import (Identifier,
                                               IdentifierCollection,
                                               IdentifierRole)
-from sdrtrunk_tpu.runtime.rotation import ChannelRotationMonitor
-from sdrtrunk_tpu.runtime.state import ChannelState
+from sdrtrunk_jax.runtime.rotation import ChannelRotationMonitor
+from sdrtrunk_jax.runtime.state import ChannelState
 
 
 def _event(now=1.5):
@@ -86,12 +86,12 @@ def test_orchestrator_rotates_to_working_control(tmp_path):
     noise; the rotation monitor cycles until it lands on the frequency
     actually transmitting P25 control, which then decodes and pins the
     rotation — and the decode events land in the CSV log."""
-    from sdrtrunk_tpu.protocol.bits import from_int
-    from sdrtrunk_tpu.protocol.p25p1.duid import DUID
-    from sdrtrunk_tpu.protocol.p25p1.framer import P25P1FrameAssembler
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
-    from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
-    from sdrtrunk_tpu.signal import generators
+    from sdrtrunk_jax.protocol.bits import from_int
+    from sdrtrunk_jax.protocol.p25p1.duid import DUID
+    from sdrtrunk_jax.protocol.p25p1.framer import P25P1FrameAssembler
+    from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
+    from sdrtrunk_jax.runtime.orchestrator import Orchestrator
+    from sdrtrunk_jax.signal import generators
 
     fs = 64 * 12500.0
     center = 460e6

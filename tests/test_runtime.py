@@ -2,18 +2,18 @@
 traffic manager, and the P25 decoder-state message flow."""
 import numpy as np
 
-from sdrtrunk_tpu.protocol import bits as B
-from sdrtrunk_tpu.protocol.p25p1 import DUID
-from sdrtrunk_tpu.protocol.p25p1.framer import P25P1Frame
-from sdrtrunk_tpu.protocol.p25p1.messages import decode_frame
-from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_encode
-from sdrtrunk_tpu.runtime import (Alias, AliasList, ChannelState,
+from sdrtrunk_jax.protocol import bits as B
+from sdrtrunk_jax.protocol.p25p1 import DUID
+from sdrtrunk_jax.protocol.p25p1.framer import P25P1Frame
+from sdrtrunk_jax.protocol.p25p1.messages import decode_frame
+from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_encode
+from sdrtrunk_jax.runtime import (Alias, AliasList, ChannelState,
                                   DecodeEventType, FrequencyBand, Identifier,
                                   IdentifierCollection, StateMachine,
                                   TrafficChannelManager)
-from sdrtrunk_tpu.runtime.aliases import TalkgroupMatcher
-from sdrtrunk_tpu.runtime.identifiers import IdentifierForm, IdentifierRole
-from sdrtrunk_tpu.runtime.p25_state import P25P1DecoderState
+from sdrtrunk_jax.runtime.aliases import TalkgroupMatcher
+from sdrtrunk_jax.runtime.identifiers import IdentifierForm, IdentifierRole
+from sdrtrunk_jax.runtime.p25_state import P25P1DecoderState
 
 
 def test_state_machine_transitions_and_timeouts():
@@ -90,7 +90,7 @@ def test_traffic_manager_grant_lifecycle():
 
 
 def _tsbk_frame(opcode: int, args: np.ndarray) -> P25P1Frame:
-    from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_decode
+    from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_decode
     return P25P1Frame(nac=0x293, duid=DUID.TSBK,
                       payload=tsbk_encode(opcode, args), start=0)
 
@@ -125,20 +125,20 @@ class TestAliasActions:
     (alias/action/RecurringAction.java:35-145)."""
 
     def _setup(self):
-        from sdrtrunk_tpu.runtime.aliases import Alias, AliasList, \
+        from sdrtrunk_jax.runtime.aliases import Alias, AliasList, \
             TalkgroupMatcher
-        from sdrtrunk_tpu.runtime.alias_actions import AliasActionManager
+        from sdrtrunk_jax.runtime.alias_actions import AliasActionManager
         alias = Alias(name="SWAT", matchers=[
             TalkgroupMatcher(protocol="APCO25", value=0x123)])
         mgr = AliasActionManager(AliasList("test", [alias]))
         return mgr
 
     def _ids(self, tg=0x123):
-        from sdrtrunk_tpu.runtime.identifiers import Identifier
+        from sdrtrunk_jax.runtime.identifiers import Identifier
         return [Identifier.talkgroup(tg, protocol="APCO25")]
 
     def test_once_fires_single_time(self):
-        from sdrtrunk_tpu.runtime.alias_actions import (ActionInterval,
+        from sdrtrunk_jax.runtime.alias_actions import (ActionInterval,
                                                         BeepAction)
         beeps = []
         mgr = self._setup()
@@ -151,7 +151,7 @@ class TestAliasActions:
         assert mgr.receive(self._ids(0x999), "call", now=3.0) == 0
 
     def test_delayed_reset_rearms_after_period(self):
-        from sdrtrunk_tpu.runtime.alias_actions import (ActionInterval,
+        from sdrtrunk_jax.runtime.alias_actions import (ActionInterval,
                                                         ClipAction)
         plays = []
         mgr = self._setup()
@@ -164,7 +164,7 @@ class TestAliasActions:
         assert plays == ["/clips/alert.wav"] * 2
 
     def test_until_dismissed(self):
-        from sdrtrunk_tpu.runtime.alias_actions import (ActionInterval,
+        from sdrtrunk_jax.runtime.alias_actions import (ActionInterval,
                                                         ScriptAction)
         runs = []
         mgr = self._setup()
@@ -183,7 +183,7 @@ class TestHeartbeatMonitor:
     """Source stall watchdog (HeartbeatManager.java role)."""
 
     def test_stall_fires_once_and_recovers(self):
-        from sdrtrunk_tpu.runtime.heartbeat import HeartbeatMonitor
+        from sdrtrunk_jax.runtime.heartbeat import HeartbeatMonitor
         t = [0.0]
         stalls, recovers = [], []
         mon = HeartbeatMonitor(timeout_seconds=1.0,
@@ -205,9 +205,9 @@ class TestHeartbeatMonitor:
         """Watchdog -> ERROR_STATE -> all channels stop (the full
         failure-detection loop of SURVEY §5)."""
         import numpy as np
-        from sdrtrunk_tpu.runtime.heartbeat import HeartbeatMonitor
-        from sdrtrunk_tpu.runtime.orchestrator import Orchestrator
-        from sdrtrunk_tpu.sources.tuner import (SourceEvent,
+        from sdrtrunk_jax.runtime.heartbeat import HeartbeatMonitor
+        from sdrtrunk_jax.runtime.orchestrator import Orchestrator
+        from sdrtrunk_jax.sources.tuner import (SourceEvent,
                                                 SourceEventType)
         fs = 32 * 12500.0
         noise = np.zeros(32 * 64, np.complex64)

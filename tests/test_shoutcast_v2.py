@@ -5,7 +5,7 @@ import struct
 
 import pytest
 
-from sdrtrunk_tpu.audio.shoutcast_v2 import (ShoutcastV2Client,
+from sdrtrunk_jax.audio.shoutcast_v2 import (ShoutcastV2Client,
                                              ShoutcastV2Config,
                                              UltravoxMessageType,
                                              pack_message, unpack_message,
@@ -44,7 +44,7 @@ def _xtea_textbook(key: bytes, block: bytes) -> bytes:
 
 
 def test_xtea_matches_textbook_form():
-    from sdrtrunk_tpu.audio.shoutcast_v2 import (_xtea_block,
+    from sdrtrunk_jax.audio.shoutcast_v2 import (_xtea_block,
                                                  _xtea_subkeys)
     for key, pt in ((bytes(range(16)), bytes.fromhex("0011223344556677")),
                     (b"cipherseed", b"password"),
@@ -94,7 +94,7 @@ class ScriptedServer:
 
 
 def _config():
-    return ShoutcastV2Config(name="tpu feed", host="x", port=8000,
+    return ShoutcastV2Config(name="jax feed", host="x", port=8000,
                              stream_id=5, user_id="u", password="pw",
                              bitrate=192000)
 

@@ -3,8 +3,8 @@ file-replay sources."""
 import numpy as np
 import pytest
 
-from sdrtrunk_tpu.io import wave
-from sdrtrunk_tpu.sources import (
+from sdrtrunk_jax.io import wave
+from sdrtrunk_jax.sources import (
     rtl_bytes_to_iq, signed_bytes_to_iq, airspy_unpacked_to_floats,
     airspy_packed_to_floats, pcm16_to_iq,
     SourceEvent, SourceEventType, TunerSpec, TunerController, TunerManager,

@@ -6,14 +6,14 @@ import struct
 
 import pytest
 
-from sdrtrunk_tpu.sources.airspy import (AirspyController, Command,
+from sdrtrunk_jax.sources.airspy import (AirspyController, Command,
                                          LINEARITY_GAINS)
-from sdrtrunk_tpu.sources.hackrf import (HackRFController, Request,
+from sdrtrunk_jax.sources.hackrf import (HackRFController, Request,
                                          select_baseband_filter)
-from sdrtrunk_tpu.sources.rtl2832 import (R820TController,
+from sdrtrunk_jax.sources.rtl2832 import (R820TController,
                                           RTL2832Controller,
                                           SHADOW_INIT, pll_registers)
-from sdrtrunk_tpu.sources.usb import (RecordingTransport, TransferProcessor,
+from sdrtrunk_jax.sources.usb import (RecordingTransport, TransferProcessor,
                                       TransferState, UsbError)
 
 
@@ -203,14 +203,14 @@ class TestE4K:
     (E4KTunerController.java; completes the RTL tuner matrix)."""
 
     def _controller(self):
-        from sdrtrunk_tpu.sources.e4k import E4K_I2C_ADDRESS, E4KController
+        from sdrtrunk_jax.sources.e4k import E4K_I2C_ADDRESS, E4KController
         # PLL lock bit set on every I2C read-back
         t = RecordingTransport(
             responses={(0, E4K_I2C_ADDRESS, 0x600): b"\x01"})
         return E4KController(RTL2832Controller(t)), t
 
     def test_pll_solution_100mhz(self):
-        from sdrtrunk_tpu.sources.e4k import e4k_pll_solution
+        from sdrtrunk_jax.sources.e4k import e4k_pll_solution
         sol = e4k_pll_solution(100_000_000)
         # 100 MHz < 108.3 -> index 0x0D, scaled osc 900 kHz
         assert sol["index"] == 0x0D
@@ -222,14 +222,14 @@ class TestE4K:
         assert sol["three_phase"]
 
     def test_pll_52mhz_rounding_hack(self):
-        from sdrtrunk_tpu.sources.e4k import (E4K_MIN_FREQUENCY,
+        from sdrtrunk_jax.sources.e4k import (E4K_MIN_FREQUENCY,
                                               e4k_pll_solution)
         sol = e4k_pll_solution(52_000_000)
         # setTunedFrequency:379-386: x bumps so actual >= 52 MHz
         assert sol["actual"] >= E4K_MIN_FREQUENCY
 
     def test_band_and_filter_selection(self):
-        from sdrtrunk_tpu.sources.e4k import e4k_band, e4k_rf_filter
+        from sdrtrunk_jax.sources.e4k import e4k_band, e4k_rf_filter
         assert e4k_band(100e6) == 0          # VHF2
         assert e4k_band(200e6) == 2          # VHF3
         assert e4k_band(450e6) == 4          # UHF
@@ -239,7 +239,7 @@ class TestE4K:
         assert e4k_rf_filter(1_400_000_000) == 3     # M1410
 
     def test_set_frequency_register_sequence(self):
-        from sdrtrunk_tpu.sources.e4k import (BIAS, SYNTH1, SYNTH3,
+        from sdrtrunk_jax.sources.e4k import (BIAS, SYNTH1, SYNTH3,
                                               SYNTH4, SYNTH5, SYNTH7,
                                               e4k_pll_solution)
         e4k, t = self._controller()
@@ -259,7 +259,7 @@ class TestE4K:
         assert s1[-2:] == [0x00, 0x04]
 
     def test_pll_lock_failure_raises(self):
-        from sdrtrunk_tpu.sources.e4k import E4K_I2C_ADDRESS, E4KController
+        from sdrtrunk_jax.sources.e4k import E4K_I2C_ADDRESS, E4KController
         t = RecordingTransport(
             responses={(0, E4K_I2C_ADDRESS, 0x600): b"\x00"})
         e4k = E4KController(RTL2832Controller(t))
@@ -274,7 +274,7 @@ class TestE4K:
             e4k.set_frequency(3_000_000_000)
 
     def test_init_sequence(self):
-        from sdrtrunk_tpu.sources.e4k import (AGC4, AGC5, AGC6, CLKOUT_PWDN,
+        from sdrtrunk_jax.sources.e4k import (AGC4, AGC5, AGC6, CLKOUT_PWDN,
                                               MASTER1)
         e4k, t = self._controller()
         e4k.init_tuner()
@@ -286,7 +286,7 @@ class TestE4K:
             and (AGC6, 0x1A) in seq
 
     def test_bandwidth_filter(self):
-        from sdrtrunk_tpu.sources.e4k import FILT2, FILT3
+        from sdrtrunk_jax.sources.e4k import FILT2, FILT3
         e4k, t = self._controller()
         e4k.set_bandwidth(2_400_000)
         seq = [(tr.data[0], tr.data[1]) for tr in t.writes()
@@ -322,7 +322,7 @@ class TestRtlLiveTuner:
 
     def test_r820t_live_read(self):
         import numpy as np
-        from sdrtrunk_tpu.sources.rtl_live import RtlLiveTuner
+        from sdrtrunk_jax.sources.rtl_live import RtlLiveTuner
         t = self._FakeTransport()
         tuner = RtlLiveTuner(t, sample_rate=2_400_000,
                              frequency=450e6, ring_seconds=0.5)
@@ -335,8 +335,8 @@ class TestRtlLiveTuner:
         assert float(np.std(chunk.real)) > 0.1
 
     def test_e4k_live_bringup(self):
-        from sdrtrunk_tpu.sources.e4k import E4K_I2C_ADDRESS, SYNTH7
-        from sdrtrunk_tpu.sources.rtl_live import RtlLiveTuner
+        from sdrtrunk_jax.sources.e4k import E4K_I2C_ADDRESS, SYNTH7
+        from sdrtrunk_jax.sources.rtl_live import RtlLiveTuner
         t = self._FakeTransport(
             responses={(0, E4K_I2C_ADDRESS, 0x600): b"\x01"})
         tuner = RtlLiveTuner(t, sample_rate=2_400_000,

@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sdrtrunk_tpu.dsp.channelizer import Channelizer
-from sdrtrunk_tpu.dsp.extract import extract_channels, plan_channels
-from sdrtrunk_tpu.receiver import WidebandReceiver
-from sdrtrunk_tpu.signal import generators
+from sdrtrunk_jax.dsp.channelizer import Channelizer
+from sdrtrunk_jax.dsp.extract import extract_channels, plan_channels
+from sdrtrunk_jax.receiver import WidebandReceiver
+from sdrtrunk_jax.signal import generators
 
 FS = 32 * 12500.0
 
@@ -89,7 +89,7 @@ def test_two_bin_chunked_matches_oneshot():
 def test_25khz_nbfm_on_12p5_grid():
     """A 25 kHz-wide NBFM transmission centered between two 12.5 kHz bins
     decodes through the full receiver via the two-bin path."""
-    from sdrtrunk_tpu.decoders.nbfm import NBFMConfig, NBFMDecoder
+    from sdrtrunk_jax.decoders.nbfm import NBFMConfig, NBFMDecoder
 
     center = 31250.0
     audio_hz = 1100.0
@@ -118,10 +118,10 @@ def test_synthesize_bank_round_trip():
     """Full M-channel synthesis bank: analysis(synthesize(u)) == u
     (delayed, unit gain) — tone exactness + C4FM decode-through."""
     import jax.numpy as jnp
-    from sdrtrunk_tpu.dsp.channelizer import Channelizer
-    from sdrtrunk_tpu.dsp.synthesizer import synthesize_bank
-    from sdrtrunk_tpu.receiver import WidebandReceiver
-    from sdrtrunk_tpu.signal.generators import c4fm_modulate, random_dibits
+    from sdrtrunk_jax.dsp.channelizer import Channelizer
+    from sdrtrunk_jax.dsp.synthesizer import synthesize_bank
+    from sdrtrunk_jax.receiver import WidebandReceiver
+    from sdrtrunk_jax.signal.generators import c4fm_modulate, random_dibits
 
     ch = Channelizer.design(32 * 12500.0, 12500.0)
     m = ch.channels

@@ -5,13 +5,13 @@ grant-bearing ones driven closed-loop into the decoder states' traffic
 managers."""
 import numpy as np
 
-from sdrtrunk_tpu.protocol.bits import from_int
-from sdrtrunk_tpu.protocol.dmr.csbk import csbk_decode, csbk_encode
-from sdrtrunk_tpu.protocol.dmr.csbk_vendor import (FID_CAPACITY_PLUS,
+from sdrtrunk_jax.protocol.bits import from_int
+from sdrtrunk_jax.protocol.dmr.csbk import csbk_decode, csbk_encode
+from sdrtrunk_jax.protocol.dmr.csbk_vendor import (FID_CAPACITY_PLUS,
                                                    FID_CONNECT_PLUS,
                                                    FID_HYTERA_68)
-from sdrtrunk_tpu.protocol.p25p1.tsbk import tsbk_decode, tsbk_encode
-from sdrtrunk_tpu.protocol.p25p1.tsbk_vendor import (MFID_HARRIS,
+from sdrtrunk_jax.protocol.p25p1.tsbk import tsbk_decode, tsbk_encode
+from sdrtrunk_jax.protocol.p25p1.tsbk_vendor import (MFID_HARRIS,
                                                      MFID_MOTOROLA)
 
 
@@ -64,8 +64,8 @@ def test_harris_tsbk_named():
 
 
 def test_motorola_patch_grant_drives_traffic_manager():
-    from sdrtrunk_tpu.runtime.p25_state import P25P1DecoderState
-    from sdrtrunk_tpu.runtime.traffic import (FrequencyBand,
+    from sdrtrunk_jax.runtime.p25_state import P25P1DecoderState
+    from sdrtrunk_jax.runtime.traffic import (FrequencyBand,
                                               TrafficChannelManager)
 
     traffic = TrafficChannelManager("APCO25")
@@ -84,7 +84,7 @@ def test_motorola_patch_grant_drives_traffic_manager():
     class _Msg:
         valid = True
         nac = 0x293
-        from sdrtrunk_tpu.protocol.p25p1.duid import DUID
+        from sdrtrunk_jax.protocol.p25p1.duid import DUID
         duid = DUID.TSBK
         content = t
 
@@ -135,12 +135,12 @@ def test_connect_plus_grant_drives_traffic_manager():
     DMRDecoderState activates the repeater's frequency (VERDICT item 7
     done-criterion: a vendor grant drives the orchestrator's traffic
     path)."""
-    from sdrtrunk_tpu.protocol.dmr.framer import (DataType,
+    from sdrtrunk_jax.protocol.dmr.framer import (DataType,
                                                   DMRBurstAssembler,
                                                   DMRFramer)
-    from sdrtrunk_tpu.protocol.dmr.sync import DMRSyncPattern
-    from sdrtrunk_tpu.runtime.dmr_state import DMRDecoderState
-    from sdrtrunk_tpu.runtime.traffic import (FrequencyBand,
+    from sdrtrunk_jax.protocol.dmr.sync import DMRSyncPattern
+    from sdrtrunk_jax.runtime.dmr_state import DMRDecoderState
+    from sdrtrunk_jax.runtime.traffic import (FrequencyBand,
                                               TrafficChannelManager)
 
     traffic = TrafficChannelManager("DMR")
@@ -170,8 +170,8 @@ def test_connect_plus_grant_drives_traffic_manager():
 # ------------------------------------------------------------- XCMP
 
 def test_xcmp_over_udp():
-    from sdrtrunk_tpu.protocol.ip import ipv4_checksum
-    from sdrtrunk_tpu.protocol.ip.packets import parse_ipv4
+    from sdrtrunk_jax.protocol.ip import ipv4_checksum
+    from sdrtrunk_jax.protocol.ip.packets import parse_ipv4
 
     xcmp = bytes([0x02, 0xAA, 0xBB, 0xCC])   # NETWORK_FREQUENCY_FILE
     udp = bytes([0x0F, 0xA4, 0x0F, 0xA4, 0, 8 + len(xcmp), 0, 0]) + xcmp
@@ -256,8 +256,8 @@ def test_hytera_xpt_preamble_fields():
 # ------------------------------------------------------------- IP stack
 
 def test_icmp_type_codes():
-    from sdrtrunk_tpu.protocol.ip.packets import ICMPHeader, ipv4_checksum
-    from sdrtrunk_tpu.protocol.ip.packets import parse_ipv4
+    from sdrtrunk_jax.protocol.ip.packets import ICMPHeader, ipv4_checksum
+    from sdrtrunk_jax.protocol.ip.packets import parse_ipv4
     h = ICMPHeader.parse(bytes([8, 0, 0x12, 0x34]))
     assert h.type_code == "ECHO REQUEST"
     assert h.describe() == "ICMP ECHO REQUEST"
@@ -279,7 +279,7 @@ def test_icmp_type_codes():
 def test_cellocator_location_status():
     import math
     import struct
-    from sdrtrunk_tpu.protocol.ip.cellocator import (MCGPMessageType,
+    from sdrtrunk_jax.protocol.ip.cellocator import (MCGPMessageType,
                                                      parse_cellocator)
     p = bytearray(65)
     struct.pack_into("<I", p, 0, 0xDEAD01)           # unit id
@@ -311,10 +311,10 @@ def test_cellocator_location_status():
 
 
 def test_cellocator_type_disambiguation_and_udp():
-    from sdrtrunk_tpu.protocol.ip import ipv4_checksum
-    from sdrtrunk_tpu.protocol.ip.cellocator import (MCGPMessageType,
+    from sdrtrunk_jax.protocol.ip import ipv4_checksum
+    from sdrtrunk_jax.protocol.ip.cellocator import (MCGPMessageType,
                                                      parse_cellocator)
-    from sdrtrunk_tpu.protocol.ip.packets import parse_ipv4
+    from sdrtrunk_jax.protocol.ip.packets import parse_ipv4
     # type 0 at 25 bytes = inbound command; at 70 = location status
     cmd = b"MCGP" + bytes([0]) + bytes(20)
     assert parse_cellocator(cmd).message_type == \
